@@ -1,0 +1,171 @@
+"""Batched agent evaluation (port of putting_dune_tpu/eval_lib.py).
+
+`evaluate_batched` runs a whole suite as one batch of environments on the
+env's device; each env stops contributing once its episode ends. The
+combined budget (simulated env seconds + the batch-shared wall clock,
+600 s by default) truncates live episodes, checked every step. The host
+per-seed evaluator is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import logging
+import time
+from typing import Callable, List, Sequence
+
+import numpy as np
+import torch
+
+from putting_dune_torch.env import env as env_lib
+
+EVAL_SUITES = {
+    'tiny_eval': tuple(range(10)),
+    'small_eval': tuple(range(100)),
+    'medium_eval': tuple(range(1_000)),
+    'big_eval': tuple(range(10_000)),
+}
+
+DEFAULT_TIMEOUT_SECONDS = 600.0
+
+BATCHED_EVALUATOR = 'batched(sim+wall)'
+
+Policy = Callable[[torch.Generator, object], torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalResult:
+  """Per-episode result; agent wall time is NaN in batched mode."""
+
+  seed: int
+  reached_goal: bool
+  num_actions_taken: int
+  agent_seconds_to_goal: float
+  environment_seconds_to_goal: float
+  total_reward: float
+  evaluator: str = ''
+
+
+@dataclasses.dataclass(frozen=True)
+class AggregateEvalResults:
+  """Averages over goal-reaching episodes."""
+
+  average_num_times_reached_goal: float
+  average_num_actions_taken: float
+  average_agent_seconds_to_goal: float
+  average_environment_seconds_to_goal: float
+  average_total_reward: float
+  evaluator: str = ''
+
+
+def aggregate_results(results: Sequence[EvalResult]) -> AggregateEvalResults:
+  reached = [r for r in results if r.reached_goal]
+  denom = max(len(reached), 1)
+  evaluators = sorted({r.evaluator for r in results})
+  evaluator = (evaluators[0] if len(evaluators) == 1
+               else 'mixed(' + ','.join(evaluators) + ')')
+  return AggregateEvalResults(
+      average_num_times_reached_goal=len(reached) / len(results),
+      average_num_actions_taken=(
+          sum(r.num_actions_taken for r in reached) / denom),
+      average_agent_seconds_to_goal=(
+          sum(r.agent_seconds_to_goal for r in reached) / denom),
+      average_environment_seconds_to_goal=(
+          sum(r.environment_seconds_to_goal for r in reached) / denom),
+      average_total_reward=sum(r.total_reward for r in reached) / denom,
+      evaluator=evaluator,
+  )
+
+
+def suite_seed(seeds: Sequence[int]) -> int:
+  """One generator seed per seed list: a hash of the whole list, so two
+  suites share a stream only if they are the same list."""
+  data = np.asarray(list(seeds), np.int64).tobytes()
+  return int.from_bytes(hashlib.sha256(data).digest()[:8], 'little') >> 1
+
+
+def evaluate_batched(
+    env: env_lib.PuttingDuneEnv,
+    policy: Policy,
+    seeds: Sequence[int],
+    *,
+    timeout_seconds: float = DEFAULT_TIMEOUT_SECONDS,
+) -> List[EvalResult]:
+  """Evaluates a batched policy over one batch of environments.
+
+  Args:
+    env: the batched environment; env.batch_size must equal len(seeds).
+    policy: (gen, observation) -> action.
+    seeds: one seed per environment; the generator is seeded from the
+      whole list (suite_seed).
+    timeout_seconds: combined per-episode budget (simulated seconds plus
+      the batch-shared wall clock since the rollout started); the step
+      cap is env.config.step_limit (600 if None).
+
+  Returns:
+    One EvalResult per seed, in order.
+  """
+  if env.batch_size != len(seeds):
+    raise ValueError(
+        f'env.batch_size={env.batch_size} != len(seeds)={len(seeds)}')
+  max_steps = env.config.step_limit or 600
+  device = env.device
+  gen = env_lib.make_generator(suite_seed(seeds), device)
+
+  with torch.inference_mode():
+    state, ts = env.reset(gen)
+    batch = env.batch_size
+    done = torch.zeros((batch,), dtype=torch.bool, device=device)
+    reached = torch.zeros_like(done)
+    steps = torch.zeros((batch,), dtype=torch.int32, device=device)
+    env_seconds = ts.elapsed_seconds.clone()
+    reward = torch.zeros((batch,), device=device)
+    kmc_truncations = 0
+
+    t_start = time.perf_counter()
+    for _ in range(max_steps):
+      wall = time.perf_counter() - t_start
+      if wall >= timeout_seconds:
+        break
+      action = policy(gen, ts.observation)
+      prev_trunc = state.kmc_truncation_count
+      state, ts = env.step(state, action, gen)
+      live = ~done
+      steps = steps + live.to(torch.int32)
+      env_seconds = env_seconds + torch.where(
+          live, ts.elapsed_seconds, torch.zeros_like(ts.elapsed_seconds))
+      reward = reward + torch.where(live, ts.reward,
+                                    torch.zeros_like(ts.reward))
+      terminal = live & (ts.step_type == env_lib.LAST)
+      reached = reached | (terminal & (ts.discount == 0.0))
+      done = done | terminal | (live & ts.first())
+      done = done | (env_seconds + wall > timeout_seconds)
+      kmc_truncations = kmc_truncations + torch.sum(
+          live & (state.kmc_truncation_count > prev_trunc))
+      if bool(done.all()):
+        break
+
+  kmc_truncations = int(kmc_truncations)
+  if kmc_truncations > 0:
+    logging.warning(
+        'evaluate_batched: the KMC max_events safety cap truncated %d '
+        'step(s); affected episodes ran incomplete dynamics.',
+        kmc_truncations)
+  reached_l = reached.tolist()
+  steps_l = steps.tolist()
+  secs_l = env_seconds.tolist()
+  reward_l = reward.tolist()
+  return [
+      EvalResult(
+          seed=int(seed),
+          reached_goal=bool(reached_l[i]),
+          num_actions_taken=int(steps_l[i]),
+          agent_seconds_to_goal=float('nan'),
+          environment_seconds_to_goal=(
+              float(secs_l[i]) if reached_l[i] else float('nan')),
+          total_reward=float(reward_l[i]),
+          evaluator=BATCHED_EVALUATOR,
+      )
+      for i, seed in enumerate(seeds)
+  ]
