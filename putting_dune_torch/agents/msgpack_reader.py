@@ -4,7 +4,9 @@ flax.serialization writes nested maps whose array leaves are msgpack ext
 type 1 payloads, themselves msgpack-encoded (shape, dtype_name, raw
 bytes); numpy scalars are ext type 3 with the same payload (a 0-d
 array). This reader returns nested dicts of numpy arrays, so the port can
-load the shipped weights without msgpack or flax installed.
+load the shipped weights without msgpack or flax installed. numpy has no
+bfloat16, so arrays stored in that type come back widened to float32
+(exactly: a bfloat16 is the upper half of a float32).
 
 Supported: nil, bool, int, float, str, bin, array, map, ext.
 """
@@ -100,7 +102,11 @@ class _Reader:
     payload = bytes(self.take(n))
     if code in (_EXT_NDARRAY, _EXT_NPSCALAR):
       shape, dtype, buf = unpackb(payload)
-      array = np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape).copy()
+      if dtype == 'bfloat16':
+        halves = np.frombuffer(buf, dtype=np.uint16).astype(np.uint32)
+        array = (halves << 16).view(np.float32).reshape(shape)
+      else:
+        array = np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape).copy()
       return array if code == _EXT_NDARRAY else array[()]
     raise ValueError(f'msgpack: unsupported ext type {code}')
 

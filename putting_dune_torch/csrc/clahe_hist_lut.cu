@@ -1,63 +1,74 @@
 // CLAHE tile histograms + clipped CDF lookup tables, one block per tile.
 //
-// Replaces: putting_dune_tpu/ops/clahe_fused_pallas.py
-// `clahe_fused_large_natural`'s first two pallas_calls, the histogram
-// (`_hist_kernel_nibble_u8`) and the LUT kernel (`_lut_kernel`). Computes,
-// for every (image, tile) of a grid x grid mesh:
-//   bins     = clip(int(x * 256), 0, 255)
-//   hist     = 256-bin histogram of the tile's bins
+// Replaces: putting_dune_tpu/ops/clahe_fused_pallas.py histogram kernels
+// (`_hist_kernel_nibble_u8`, `_hist_kernel_nibble`, `_hist_kernel`) and the
+// LUT kernel (`_lut_kernel`) of `clahe_fused_large_natural` and
+// `clahe_fused_large`. Computes, for every (image, tile) of a grid x grid
+// mesh and V = nbins gray levels (a run-time argument):
+//   bins     = clip(int(x * V), 0, V - 1)
+//   hist     = V-bin histogram of the tile's bins
 //   clim     = max(clip_limit * tile_pixels, 1)
-//   hist'    = min(hist, clim) + sum(max(hist - clim, 0)) / 256
+//   hist'    = min(hist, clim) + sum(max(hist - clim, 0)) / V
 //   mapping  = cumsum(hist') / sum(hist')
 // (the JAX package's one-pass clip law, putting_dune_tpu/imaging/clahe.py,
 // not skimage's iterative one).
 //
 // What bounds it on an H100: reading the frame once (4 bytes/pixel); the
-// outputs are 2 KB per tile. The nibble-MXU histogram and the
-// triangular-matmul cumsum of the TPU kernels are workarounds for a chip
-// without fast scatter; here the histogram is shared-memory atomics and
-// the cumsum a 256-wide block scan. Simple first: one block of 256
-// threads per tile (6400 blocks at 100 x 512^2, grid 8).
+// outputs are 8 V bytes per tile. The TPU package has three histogram
+// kernels because of that chip's memory tiling (uint8 vs int32 bins) and
+// its matrix-unit nibble trick (exactly 256 bins, 8 tiles a step); none of
+// that exists here, so one kernel serves every route: the histogram is
+// shared-memory atomics and the cumsum a Hillis-Steele block scan over V
+// entries in dynamic shared memory. Simple first: one block of 256 threads
+// per tile (6400 blocks at 100 x 512^2, grid 8); each thread owns bins
+// t, t + 256, ...
+//
+// The clip/excess/scan arithmetic (order of every sum) is shared with
+// csrc/clahe_small.cu, so the two routes give identical mappings.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBins = 256;
+constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kBins)
+__global__ void __launch_bounds__(kThreads)
 clahe_hist_lut_kernel(const float* __restrict__ image, int* __restrict__ hist_out,
                       float* __restrict__ mapping, int height, int width,
-                      int grid, float clim) {
-  __shared__ int hist[kBins];
-  __shared__ float scan[2][kBins];
-  __shared__ float red[kBins / 32];
+                      int grid, int nbins, float clim) {
+  extern __shared__ int smem[];
+  int* hist = smem;                                   // [nbins]
+  float* scan0 = reinterpret_cast<float*>(smem + nbins);  // [2][nbins]
+  __shared__ float red[kThreads / 32];
   const int t = threadIdx.x;
   const int tile = blockIdx.x, b = blockIdx.y;
   const int th = height / grid, tw = width / grid;
   const int ty = tile / grid, tx = tile - ty * grid;
   const float* src =
       image + (size_t)b * height * width + (size_t)ty * th * width + tx * tw;
+  const float fbins = (float)nbins;
 
-  hist[t] = 0;
+  for (int v = t; v < nbins; v += kThreads) hist[v] = 0;
   __syncthreads();
   const int npx = th * tw;
-  for (int p = t; p < npx; p += kBins) {
+  for (int p = t; p < npx; p += kThreads) {
     const int r = p / tw, c = p - r * tw;
-    const int bin = min(max((int)(src[(size_t)r * width + c] * 256.0f), 0),
-                        kBins - 1);
+    const int bin =
+        min(max((int)(src[(size_t)r * width + c] * fbins), 0), nbins - 1);
     atomicAdd(&hist[bin], 1);
   }
   __syncthreads();
 
-  const size_t out_off = ((size_t)b * grid * grid + tile) * kBins + t;
-  const int count = hist[t];
-  hist_out[out_off] = count;
+  const size_t out_off = ((size_t)b * grid * grid + tile) * nbins;
 
   // Clip and redistribute the excess uniformly.
-  const float h = (float)count;
-  float excess = fmaxf(h - clim, 0.0f);
+  float excess = 0.0f;
+  for (int v = t; v < nbins; v += kThreads) {
+    const int count = hist[v];
+    hist_out[out_off + v] = count;
+    excess += fmaxf((float)count - clim, 0.0f);
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     excess += __shfl_xor_sync(0xffffffffu, excess, off);
@@ -65,21 +76,26 @@ clahe_hist_lut_kernel(const float* __restrict__ image, int* __restrict__ hist_ou
   __syncthreads();
   float total_excess = 0.0f;
 #pragma unroll
-  for (int w = 0; w < kBins / 32; ++w) total_excess += red[w];
-  const float clipped = fminf(h, clim) + total_excess / (float)kBins;
+  for (int w = 0; w < kThreads / 32; ++w) total_excess += red[w];
+  const float spread = total_excess / fbins;
 
-  // Inclusive Hillis-Steele scan over the 256 bins.
-  int cur = 0;
-  scan[cur][t] = clipped;
+  // Inclusive Hillis-Steele scan over the nbins entries.
+  float* cur = scan0;
+  float* nxt = scan0 + nbins;
+  for (int v = t; v < nbins; v += kThreads)
+    cur[v] = fminf((float)hist[v], clim) + spread;
   __syncthreads();
-  for (int off = 1; off < kBins; off <<= 1) {
-    const float v = t >= off ? scan[cur][t - off] + scan[cur][t]
-                             : scan[cur][t];
-    scan[cur ^ 1][t] = v;
-    cur ^= 1;
+  for (int off = 1; off < nbins; off <<= 1) {
+    for (int v = t; v < nbins; v += kThreads)
+      nxt[v] = v >= off ? cur[v - off] + cur[v] : cur[v];
+    float* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
     __syncthreads();
   }
-  mapping[out_off] = scan[cur][t] / scan[cur][kBins - 1];
+  const float total = cur[nbins - 1];
+  for (int v = t; v < nbins; v += kThreads)
+    mapping[out_off + v] = cur[v] / total;
 }
 
 }  // namespace
@@ -87,10 +103,11 @@ clahe_hist_lut_kernel(const float* __restrict__ image, int* __restrict__ hist_ou
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int clahe_hist_lut_launch(const float* image, int* hist,
                                      float* mapping, int batch, int height,
-                                     int width, int grid, float clim,
-                                     void* stream) {
+                                     int width, int grid, int nbins,
+                                     float clim, void* stream) {
   const dim3 blocks(grid * grid, batch);
-  clahe_hist_lut_kernel<<<blocks, kBins, 0, (cudaStream_t)stream>>>(
-      image, hist, mapping, height, width, grid, clim);
+  const size_t shared = (size_t)nbins * 3 * sizeof(int);
+  clahe_hist_lut_kernel<<<blocks, kThreads, shared, (cudaStream_t)stream>>>(
+      image, hist, mapping, height, width, grid, nbins, clim);
   return (int)cudaGetLastError();
 }

@@ -3,6 +3,9 @@
   python -m putting_dune_torch.eval --experiment_name=ppo_simple_images_tf \
       [--eval_suite=small_eval] [--device=cpu]
 
+Experiments: relative_random_simple, greedy_simple_rates,
+ppo_simple_images_tf, planner_simple_rates, vision_planner_simple_rates.
+
 Runs the suite as one batch of environments (CUDA by default; raises if
 CUDA is absent unless --device=cpu) and prints the aggregate as JSON.
 """
@@ -26,6 +29,20 @@ class Args:
   device: Optional[str] = None
 
 
+def policy_for_agent(agent):
+  """The batched policy of what an experiment's `get_policy` returned (the
+  JAX package's `_policy_for_agent`): a registry agent (PlannerAgent,
+  VisionPlannerAgent) exposes `policy()`; anything else already is a
+  `(gen, observation) -> action` callable."""
+  from putting_dune_torch.agents import planner as planner_lib
+  from putting_dune_torch.agents import vision_planner as vision_planner_lib
+
+  if isinstance(agent, (planner_lib.PlannerAgent,
+                        vision_planner_lib.VisionPlannerAgent)):
+    return agent.policy()
+  return agent
+
+
 def main(args: Args) -> dict:
   """Runs one eval; returns {'aggregate', 'results', 'env_steps', ...}."""
   from putting_dune_torch import device as device_lib
@@ -37,7 +54,8 @@ def main(args: Args) -> dict:
   seeds = eval_lib.EVAL_SUITES[args.eval_suite]
   experiment = registry.create_eval_experiment(args.experiment_name)
   adapters_and_goal = experiment.get_adapters_and_goal()
-  policy = experiment.get_policy(adapters_and_goal, device)
+  policy = policy_for_agent(
+      experiment.get_policy(adapters_and_goal, device))
   env = run_helpers.create_batched_env(
       experiment.get_adapters_and_goal, experiment.get_simulator_config,
       batch_size=len(seeds), step_limit=args.step_limit,

@@ -37,7 +37,7 @@ NVCC_FLAGS = (
     '-shared', '-Xcompiler', '-fPIC',
 )
 
-KERNELS = ('noise_chain', 'clahe_hist_lut', 'clahe_remap')
+KERNELS = ('noise_chain', 'clahe_hist_lut', 'clahe_remap', 'clahe_small')
 
 LAUNCHES = {name: 0 for name in KERNELS}
 

@@ -1,20 +1,26 @@
-"""CLAHE for large tiles: the two CUDA kernels' wrappers and plain twins.
+"""CLAHE: the three CUDA kernels' wrappers and their plain twins.
 
-Port of putting_dune_tpu/ops/clahe_fused_pallas.py
-`clahe_fused_large_natural` (three pallas_calls: histogram, LUT, remap)
-as two kernels:
+Port of putting_dune_tpu/ops/clahe_fused_pallas.py. The JAX package has
+three routes there (`clahe_fused` for tiles of at most 512 pixels,
+`clahe_fused_large` and `clahe_fused_large_natural` for larger ones, each
+with several histogram kernels); the port has
 
   * `clahe_hist_lut` (csrc/clahe_hist_lut.cu): per (image, tile) the
-    256-bin histogram, the one-pass clip at max(clip * npx, 1) with the
+    nbins-bin histogram, the one-pass clip at max(clip * npx, 1) with the
     excess spread uniformly, and the normalized cdf `mapping`;
   * `clahe_remap` (csrc/clahe_remap.cu): per pixel, the bilinear blend of
     the four surrounding tiles' mappings over the half-tile-offset dual
-    blocks, edge-clamped at the border — the math of the JAX package's
-    CPU path (putting_dune_tpu/imaging/clahe.py), in f32.
+    blocks, edge-clamped at the border -- the math of the JAX package's
+    CPU path (putting_dune_tpu/imaging/clahe.py), in f32;
+  * `clahe_small` (csrc/clahe_small.cu): both steps in one launch, one
+    block per image, histograms and mappings held in shared memory, for
+    frames whose tiles have at most `SMALL_TILE_PIXELS` pixels.
 
-On CPU tensors each wrapper runs its twin (`hist_lut_reference`,
-`remap_reference`): histograms by bincount and LUT reads by gather, never
-a (pixels x bins) one-hot.
+Every kernel takes `nbins` (2..`MAX_NBINS`) and the grid at run time.
+Which route a frame takes is decided by its shape alone
+(imaging/clahe.py). On CPU tensors each wrapper runs its twin
+(`hist_lut_reference`, `remap_reference`, `clahe_reference`): histograms
+by bincount and LUT reads by gather, never a (pixels x bins) one-hot.
 """
 
 from __future__ import annotations
@@ -27,6 +33,12 @@ import torch
 from putting_dune_torch.ops import _build
 
 NBINS = 256
+MAX_NBINS = 1024
+# Tiles up to this many pixels take the one-launch kernel (the JAX
+# package's `fused_small` rule).
+SMALL_TILE_PIXELS = 512
+# Dynamic shared memory one block may ask for on sm_90.
+MAX_SHARED_BYTES = 232448
 
 
 def _bins(image: torch.Tensor, nbins: int) -> torch.Tensor:
@@ -125,8 +137,9 @@ def clahe_reference(
 def _cuda_only(name: str, image: torch.Tensor, nbins: int) -> None:
   if not image.is_cuda:
     raise ValueError(f'{name}: unsupported device {image.device}.')
-  if nbins != NBINS:
-    raise ValueError(f'{name}: the kernel takes exactly {NBINS} bins.')
+  if not 2 <= nbins <= MAX_NBINS:
+    raise ValueError(
+        f'{name}: nbins must be in [2, {MAX_NBINS}], got {nbins}.')
 
 
 def clahe_hist_lut(
@@ -144,12 +157,12 @@ def clahe_hist_lut(
   mapping = torch.empty((b, g, g, nbins), device=image.device)
   fn = _build.load('clahe_hist_lut').clahe_hist_lut_launch
   fn.restype = ctypes.c_int
-  fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+  fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
       ctypes.c_float, ctypes.c_void_p
   ]
   status = fn(
       _build.ptr(image), _build.ptr(hist), _build.ptr(mapping), b, h, w, g,
-      clip_limit_count(clip_limit, (h // g) * (w // g)),
+      nbins, clip_limit_count(clip_limit, (h // g) * (w // g)),
       _build.stream_ptr(image.device),
   )
   _build.check_status('clahe_hist_lut', status)
@@ -173,11 +186,59 @@ def clahe_remap(image: torch.Tensor, mapping: torch.Tensor) -> torch.Tensor:
   out = torch.empty_like(image)
   fn = _build.load('clahe_remap').clahe_remap_launch
   fn.restype = ctypes.c_int
-  fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+  fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
   status = fn(
       _build.ptr(image), _build.ptr(mapping), _build.ptr(out), b, h, w, g,
-      _build.stream_ptr(image.device),
+      mapping.shape[-1], _build.stream_ptr(image.device),
   )
   _build.check_status('clahe_remap', status)
   _build.count_launch('clahe_remap')
   return out
+
+
+def clahe_small(
+    image: torch.Tensor, clip_limit: float = 0.01, grid_size: int = 8,
+    nbins: int = NBINS, *, return_hist: bool = False,
+):
+  """The whole CLAHE of (B, H, W) frames with small tiles in one launch.
+
+  Equal to `clahe_remap(image, clahe_hist_lut(image, ...)[1])`. Tiles may
+  have at most `SMALL_TILE_PIXELS` pixels. With `return_hist` also
+  returns the (B, g, g, nbins) int32 tile histograms.
+  """
+  _check_image(image, grid_size)
+  b, h, w = image.shape
+  g = grid_size
+  npx = (h // g) * (w // g)
+  if npx > SMALL_TILE_PIXELS:
+    raise ValueError(
+        f'clahe_small: tiles of {npx} pixels exceed {SMALL_TILE_PIXELS}.')
+  if image.device.type == 'cpu':
+    hist, mapping = hist_lut_reference(image, g, clip_limit, nbins)
+    out = remap_reference(image, mapping)
+    return (out, hist) if return_hist else out
+  _cuda_only('clahe_small', image, nbins)
+  lib = _build.load('clahe_small')
+  lib.clahe_small_shared_bytes.restype = ctypes.c_int
+  lib.clahe_small_shared_bytes.argtypes = [ctypes.c_int] * 2
+  shared = lib.clahe_small_shared_bytes(g, nbins)
+  if shared > MAX_SHARED_BYTES:
+    raise ValueError(
+        f'clahe_small: grid {g} x {nbins} bins needs {shared} bytes of '
+        f'shared memory, above the {MAX_SHARED_BYTES} a block may have.')
+  out = torch.empty_like(image)
+  hist = (torch.empty((b, g, g, nbins), dtype=torch.int32,
+                      device=image.device) if return_hist else None)
+  fn = lib.clahe_small_launch
+  fn.restype = ctypes.c_int
+  fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+      ctypes.c_float, ctypes.c_void_p
+  ]
+  status = fn(
+      _build.ptr(image), _build.ptr(out), _build.ptr(hist), b, h, w, g,
+      nbins, clip_limit_count(clip_limit, npx),
+      _build.stream_ptr(image.device),
+  )
+  _build.check_status('clahe_small', status)
+  _build.count_launch('clahe_small')
+  return (out, hist) if return_hist else out

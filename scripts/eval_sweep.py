@@ -54,13 +54,15 @@ def main(argv=None) -> None:
 
 def _torch_evaluator(args):
   from putting_dune_torch import device as device_lib
+  from putting_dune_torch import eval as eval_cli
   from putting_dune_torch import eval_lib
   from putting_dune_torch import registry
   from putting_dune_torch import run_helpers
 
   device = device_lib.resolve_device(args.device)
   exp = registry.create_eval_experiment(args.experiment_name)
-  policy = exp.get_policy(exp.get_adapters_and_goal(), device)
+  policy = eval_cli.policy_for_agent(
+      exp.get_policy(exp.get_adapters_and_goal(), device))
   env = run_helpers.create_batched_env(
       exp.get_adapters_and_goal, exp.get_simulator_config, batch_size=100,
       image_size=args.image_size, device=device)

@@ -1,9 +1,10 @@
-"""Where an env step's time goes: the pixel-policy eval loop on one GPU.
+"""Where an env step's time goes: an image-observation eval loop on one GPU.
 
   python scripts/profile_eval_step.py [--batch=100] [--steps=30]
+      [--experiment_name=vision_planner_simple_rates]
 
-Runs `ppo_simple_images_tf` at the 512^2 render for --steps env steps
-after a warm-up, three ways:
+Runs the experiment (default `ppo_simple_images_tf`) at the 512^2 render
+for --steps env steps after a warm-up, three ways:
 
   1. plain: host wall clock per step (policy + env.step), synchronized;
   2. sections: the same loop with the KMC, the render (splat + noise +
@@ -27,6 +28,7 @@ def main(argv=None) -> None:
       __file__))))
   import torch
 
+  from putting_dune_torch import eval as eval_cli
   from putting_dune_torch import kmc
   from putting_dune_torch import registry
   from putting_dune_torch import run_helpers
@@ -38,6 +40,7 @@ def main(argv=None) -> None:
   parser.add_argument('--batch', type=int, default=100)
   parser.add_argument('--steps', type=int, default=30)
   parser.add_argument('--device', default='cuda')
+  parser.add_argument('--experiment_name', default='ppo_simple_images_tf')
   args = parser.parse_args(argv)
 
   dev = torch.device(args.device)
@@ -45,8 +48,9 @@ def main(argv=None) -> None:
   def sync():
     if dev.type == 'cuda':
       torch.cuda.synchronize()
-  exp = registry.create_eval_experiment('ppo_simple_images_tf')
-  policy = exp.get_policy(exp.get_adapters_and_goal(), dev)
+  exp = registry.create_eval_experiment(args.experiment_name)
+  policy = eval_cli.policy_for_agent(
+      exp.get_policy(exp.get_adapters_and_goal(), dev))
   env = run_helpers.create_batched_env(
       exp.get_adapters_and_goal, exp.get_simulator_config,
       batch_size=args.batch, device=dev)
@@ -66,7 +70,8 @@ def main(argv=None) -> None:
     state, ts = run(args.steps, state, ts)
     sync()
     plain = (time.perf_counter() - t0) / args.steps
-    print(f'plain: {plain * 1e3:.3f} ms per env step at batch {args.batch} '
+    print(f'{args.experiment_name} plain: {plain * 1e3:.3f} ms per env step '
+          f'at batch {args.batch} '
           f'({args.batch / plain:.1f} env steps/s)', flush=True)
 
     totals = collections.Counter()
@@ -122,14 +127,17 @@ def main(argv=None) -> None:
     events = [e for e in prof.key_averages()
               if getattr(e, 'device_time_total', 0) > 0]
     # Kernels only: top-level ops also report their kernels' device time.
+    # The profiler's own buffer events are no kernels either.
+    overhead = ('Command Buffer Full', 'Buffer Flush',
+                'Activity Buffer Request')
     kernels = [e for e in events if e.key and not e.key.startswith('aten::')
-               and not e.key.startswith('cuda')]
+               and not e.key.startswith('cuda') and e.key not in overhead]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     print(f'profiler: wall {wall / args.steps * 1e3:.3f} ms per step, '
           f'device busy {busy / args.steps * 1e3:.3f} ms per step, '
           f'busy share {busy / wall:.3f}', flush=True)
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    for e in kernels[:15]:
+    for e in kernels[:25]:
       print(f'  {e.self_device_time_total / 1e3 / args.steps:9.4f} ms/step '
             f'{e.count / args.steps:7.1f} calls/step  {e.key[:90]}',
             flush=True)
