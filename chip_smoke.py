@@ -31,7 +31,25 @@ Phases (any failure exits non-zero before the final line):
   10. path B: `vision_planner_simple_rates` on small_eval (512^2 render ->
       256^2 features -> UNet -> lattice frame -> planner), success >= 0.90;
       `planner_simple_rates` on small_eval, success >= 0.95;
-  11. a `kernels` JSON line; 12. the result JSON line, last.
+  11. `splat_render` against its twin and against the default route
+      (`_splat_axis_kernels` + `torch.bmm`) on the atom windows of a
+      `multi_dopant_3_vision_planner` env at batch 100, at S = 256 and 512
+      (max |d| <= 1e-5), timed beside both and its bound;
+  12. `clahe_interp` against its twin on the dual blocks of that env's
+      noisy frames at (100, 81, 1024) and (100, 81, 4096) with 256 bins and
+      at 128 bins (max |d| <= 1e-6); `equalize_adapthist(backend='interp')`
+      against the default route at (100, 256, 256) and (100, 512, 512)
+      (max |d| <= 2e-5); timed beside `clahe_remap` on the same frames;
+  13. path C: the env's atom windows -> fused splat -> noise_chain ->
+      interpolation route -> shipped UNet -> multi-dopant vision policy; the
+      actions are finite, in [-1, 1], and within 0.05 of the actions from
+      the default CLAHE route on the same noisy frames for >= 99 of 100 envs;
+  14. path A: `multi_dopant_3_planner` on small_eval, success >= 0.95;
+      `multi_dopant_2_distilled` on tiny_eval, success >= 0.75;
+  15. path B: `multi_dopant_3_vision_planner` on small_eval (batch 100,
+      256^2 frames, UNet, peaks, planner), success >= 0.80, the noise chain
+      and the split CLAHE pair launched;
+  16. a `kernels` JSON line; 17. the result JSON line, last.
 
 It imports nothing of JAX or of putting_dune_tpu (the shipped weights are
 read as data).
@@ -60,6 +78,8 @@ NOISE_OPS_PER_PIXEL = 96
 HIST_OPS_PER_PIXEL = 4
 # clahe_remap: bin (3), indices and weights (~12), 4 mul + 3 add.
 REMAP_OPS_PER_PIXEL = 22
+# clahe_interp: clamp (2), 4 mul + 3 add.
+INTERP_OPS_PER_PIXEL = 9
 
 # Least pixel accuracy of the shipped detector's argmax against the label
 # mask on the port's own 256^2 scenes: the JAX package's value on its own
@@ -79,6 +99,8 @@ TPU_SITES = {
     # clahe_fused_large :744.
     'clahe_remap': 'putting_dune_tpu/ops/clahe_fused_pallas.py:647,744',
     'clahe_small': 'putting_dune_tpu/ops/clahe_fused_pallas.py:253',
+    'splat_render': 'putting_dune_tpu/ops/splat_pallas.py:150',
+    'clahe_interp': 'putting_dune_tpu/ops/clahe_pallas.py:78',
 }
 
 SOURCES = {name: f'putting_dune_torch/csrc/{name}.cu' for name in TPU_SITES}
@@ -355,7 +377,7 @@ def main() -> None:
         'clahe_small and the split pair differ')
   x_mid, map_mid, mid_errs = hold_pair((128, 256, 256), 256)
   hold_pair((64, 384, 384), 256)
-  hold_pair((64, 128, 128), 128)
+  x_v128, map_v128, v128_errs = hold_pair((64, 128, 128), 128)
 
   nb, nh, nw = 128, 256, 256
   params_mid = imaging_params.sample_imaging_params(gen, nb, device=dev,
@@ -415,6 +437,22 @@ def main() -> None:
         'shape': [128, 256, 256], 'ms': ms,
         'plain_ms': time_ms(plain_fn, repeats=20), 'bound_ms': bound_ms,
         'bound_by': bound_by, 'max_abs_err': err})
+  # The any-`nbins` histogram branch at 128 bins (4 MB of frames: they stay
+  # in L2 whatever the rotation).
+  v128_inputs = [x_v128] + [frames((64, 128, 128)) for _ in range(3)]
+  t_hist_v128 = time_rotating_ms(
+      lambda x: clahe_fused.clahe_hist_lut(x, nbins=128), v128_inputs)
+  v128_bound, v128_by = bound(
+      4.0 * x_v128.numel() + map_v128.numel() * 8,
+      HIST_OPS_PER_PIXEL * x_v128.numel())
+  other_shapes['clahe_hist_lut'].append({
+      'shape': [64, 128, 128], 'nbins': 128, 'ms': t_hist_v128,
+      'plain_ms': time_ms(
+          lambda: clahe_fused.hist_lut_reference(x_v128, nbins=128),
+          repeats=20),
+      'bound_ms': v128_bound, 'bound_by': v128_by,
+      'max_abs_err': v128_errs[0]})
+  del v128_inputs, x_v128, map_v128
   pair_bound, _ = bound(8.0 * n_mid, 0)
   print(f'clahe pair (128, 256, 256): hist_lut {t_hist_mid:.4f} + remap '
         f'{t_remap_mid:.4f} ms, both in turn {t_pair_mid:.4f} ms (bound of '
@@ -500,15 +538,15 @@ def main() -> None:
   torch.cuda.empty_cache()
 
   # -- 10. path B: vision planner and planner on small_eval -------------------
-  def run_eval(name, bar):
+  def run_eval(name, bar, suite='small_eval', path='path B'):
     _build.reset_launches()
     torch.cuda.synchronize()
     rep = eval_cli.main(eval_cli.Args(
-        experiment_name=name, eval_suite='small_eval', device='cuda'))
+        experiment_name=name, eval_suite=suite, device='cuda'))
     torch.cuda.synchronize()
     counted = dict(_build.LAUNCHES)
     a = rep['aggregate']
-    print(f"path B {name} small_eval: success "
+    print(f"{path} {name} {suite}: success "
           f"{a['average_num_times_reached_goal']}, average actions "
           f"{a['average_num_actions_taken']:.2f}, {rep['env_steps']} env "
           f"steps in {rep['wall_seconds']:.2f} s = "
@@ -524,7 +562,202 @@ def main() -> None:
     check(counted[name] > 0, f'{name} was not launched on path B')
   run_eval('planner_simple_rates', 0.95)
 
-  # -- 11. kernels line --------------------------------------------------------
+  # -- 11. splat_render on the multi-dopant env's atom windows -----------------
+  from putting_dune_torch.imaging import clahe as clahe_lib
+  from putting_dune_torch.imaging import render as render_lib
+  from putting_dune_torch.ops import clahe_interp
+  from putting_dune_torch.ops import splat as splat_lib
+
+  md_exp = registry.create_multi_dopant_experiment(
+      'multi_dopant_3_vision_planner')
+  md_env = md_exp.make_env(100, device=dev)
+  md_gen = env_lib.make_generator(3, dev)
+  md_state, _ = md_env.reset(md_gen)
+  md_window = md_env._atom_window(md_state)
+  md_fov = md_env._fov(md_state)
+  check(tuple(md_window.positions.shape) == (100, 512, 2), 'atom window shape')
+
+  def default_splat(bx, by, wts, sx, sy, size):
+    gx = render_lib._splat_axis_kernels(bx, sx, size)
+    gy = render_lib._splat_axis_kernels(by, sy, size) * wts[..., None]
+    image = torch.flip(torch.bmm(gy.transpose(1, 2), gx), dims=(-2,))
+    peak = torch.amax(image, dim=(-2, -1), keepdim=True)
+    return image / torch.clamp(peak, min=1e-20)
+
+  splat_rows, clean_md = {}, {}
+  for size in (256, 512):
+    operands = [t.contiguous() for t in render_lib._splat_inputs(
+        md_window, md_fov, md_state.imaging.intensity_exponent, size,
+        md_state.imaging.blur_amount)]
+    bx, by, wts, sx, sy = operands
+    got = splat_lib.splat_render(*operands, image_size=size)
+    want = splat_lib.splat_render_reference(*operands, image_size=size)
+    route = default_splat(*operands, size)
+    torch.cuda.synchronize()
+    err_twin = float((got - want).abs().max())
+    err_route = float((got - route).abs().max())
+    real = int((wts > 0).sum())
+    print(f'splat_render (100, 512, {size}): {real} real atoms, max|d| vs twin '
+          f'= {err_twin:.3g}, vs the default route = {err_route:.3g}',
+          flush=True)
+    check(bool(torch.isfinite(got).all()) and float(got.amax()) == 1.0,
+          'splat_render frames are not max-normalized')
+    check(err_twin <= 1e-5, f'splat_render disagrees with its twin at {size}')
+    check(err_route <= 1e-5,
+          f'splat_render disagrees with the default route at {size}')
+    del want, route
+    # Work this run's data needs: two operations per (real atom, pixel of
+    # its truncated support); the dense contraction is given beside it.
+    support = ((2 * torch.floor(4 * sx + 0.5) + 1)
+               * (2 * torch.floor(4 * sy + 0.5) + 1))  # (B,)
+    sparse_ops = 2.0 * float(((wts > 0).sum(dim=1) * support).sum())
+    dense_ops = 2.0 * 100 * 512 * size * size
+    nbytes = 4.0 * (got.numel() + 3 * bx.numel() + 2 * sx.numel())
+    bound_ms, bound_by = bound(nbytes, sparse_ops)
+    t_kernel = time_ms(lambda: splat_lib.splat_render(
+        *operands, image_size=size))
+    t_twin = time_ms(lambda: splat_lib.splat_render_reference(
+        *operands, image_size=size), repeats=10)
+    t_route = time_ms(lambda: default_splat(*operands, size), repeats=10)
+    print(f'splat_render (100, 512, {size}): {t_kernel:.4f} ms, twin '
+          f'{t_twin:.4f} ms, default route {t_route:.4f} ms, bound '
+          f'{bound_ms:.4f} ms ({bound_by}); dense contraction '
+          f'{dense_ops / F32_OPS_PER_S * 1e3:.4f} ms', flush=True)
+    splat_rows[size] = {
+        'shape': [100, 512, size], 'ms': t_kernel, 'plain_ms': t_twin,
+        'bound_ms': bound_ms, 'bound_by': bound_by, 'max_abs_err': err_twin,
+        'library_ms': t_route,
+        'dense_contraction_ms': dense_ops / F32_OPS_PER_S * 1e3}
+    clean_md[size] = got
+  row = splat_rows[256]
+  rows['splat_render'] = (row['ms'], row['plain_ms'], row['max_abs_err'],
+                          row['bound_ms'], row['bound_by'],
+                          SOURCES['splat_render'])
+  shapes['splat_render'] = (100, 512, 256)
+  # No single PyTorch call computes the splat; its yardstick is the default
+  # route (two (B, K, S) exp passes and `torch.bmm`), what a caller who does
+  # not ask for the fused backend runs.
+  library = {'splat_render': row['library_ms']}
+  other_shapes['splat_render'].append(splat_rows[512])
+
+  # -- 12. clahe_interp on that env's noisy frames ------------------------------
+  md_packed = noise_fused.pack_params(md_state.imaging, 100)
+  noisy = {size: noise_fused.noise_chain(clean, md_packed, gen=md_gen)
+           for size, clean in clean_md.items()}
+  del clean_md
+  interp_rows = {}
+  for size, nbins in ((256, 256), (512, 256), (256, 128)):
+    frames_n = noisy[size]
+    blocks, luts, wgt = clahe_lib.dual_block_inputs(frames_n, nbins=nbins)
+    check(tuple(blocks.shape) == (100, 81, (size // 8) ** 2)
+          and tuple(luts.shape) == (100, 81, nbins, 4), 'dual block shapes')
+    got = clahe_interp.clahe_interpolate(blocks, luts, wgt)
+    want = clahe_interp.clahe_interpolate_reference(blocks, luts, wgt)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    whole = clahe_lib.equalize_adapthist(frames_n, nbins=nbins,
+                                         backend='interp')
+    default = clahe_lib.equalize_adapthist(frames_n, nbins=nbins)
+    torch.cuda.synchronize()
+    err_route = float((whole - default).abs().max())
+    print(f'clahe_interp {tuple(blocks.shape)} nbins {nbins}: max|d| vs twin '
+          f'= {err:.3g}; whole interpolation route vs the default route at '
+          f'(100, {size}, {size}): max|d| = {err_route:.3g}', flush=True)
+    check(err <= 1e-6, f'clahe_interp disagrees with its twin at {size}')
+    check(err_route <= 2e-5,
+          f'the interpolation route disagrees with the default at {size}')
+    del want, whole, default
+    if nbins != 256:
+      continue
+    nbytes = 4.0 * (blocks.numel() + luts.numel() + wgt.numel() + got.numel())
+    bound_ms, bound_by = bound(nbytes, INTERP_OPS_PER_PIXEL * blocks.numel())
+    t_kernel = time_ms(lambda: clahe_interp.clahe_interpolate(
+        blocks, luts, wgt))
+    t_twin = time_ms(lambda: clahe_interp.clahe_interpolate_reference(
+        blocks, luts, wgt), repeats=10)
+    _, map_n = clahe_fused.clahe_hist_lut(frames_n)
+    t_remap_n = time_ms(lambda: clahe_fused.clahe_remap(frames_n, map_n))
+    t_whole = time_ms(lambda: clahe_lib.equalize_adapthist(
+        frames_n, backend='interp'), repeats=10)
+    t_default = time_ms(lambda: clahe_lib.equalize_adapthist(frames_n),
+                        repeats=10)
+    print(f'clahe_interp {tuple(blocks.shape)}: {t_kernel:.4f} ms, twin '
+          f'{t_twin:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); '
+          f'clahe_remap on the same frames {t_remap_n:.4f} ms; whole '
+          f'interpolation route {t_whole:.4f} ms, default route '
+          f'{t_default:.4f} ms', flush=True)
+    interp_rows[size] = {
+        'shape': list(blocks.shape), 'ms': t_kernel, 'plain_ms': t_twin,
+        'bound_ms': bound_ms, 'bound_by': bound_by, 'max_abs_err': err,
+        'clahe_remap_ms': t_remap_n, 'whole_route_ms': t_whole,
+        'default_route_ms': t_default}
+    del map_n
+  del blocks, luts, wgt, got, noisy
+  row = interp_rows[256]
+  rows['clahe_interp'] = (row['ms'], row['plain_ms'], row['max_abs_err'],
+                          row['bound_ms'], row['bound_by'],
+                          SOURCES['clahe_interp'])
+  shapes['clahe_interp'] = tuple(row['shape'])
+  other_shapes['clahe_interp'].append(interp_rows[512])
+  torch.cuda.empty_cache()
+
+  # -- 13. path C: the two kernels through the imaging API, to actions ----------
+  md_agent = md_exp.get_agent(dev)
+  _build.reset_launches()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  md_state, md_ts = md_env.reset(md_gen)
+  md_window = md_env._atom_window(md_state)
+  md_fov = md_env._fov(md_state)
+  clean_c = render_lib.render_clean_image(
+      md_window, md_fov, md_state.imaging.intensity_exponent, image_size=256,
+      blur_amount=md_state.imaging.blur_amount, backend='fused')
+  noisy_c = noise_fused.noise_chain(
+      clean_c, noise_fused.pack_params(md_state.imaging, 100), gen=md_gen)
+  frames_c = clahe_lib.equalize_adapthist(noisy_c, clip_limit=0.01,
+                                          backend='interp')
+  obs_c = dict(md_ts.observation, image=frames_c[..., None])
+  policy_c = md_agent.policy()
+  actions_c = torch.clamp(policy_c(md_gen, obs_c), -1.0, 1.0)
+  md_state, md_ts = md_env.step(md_state, actions_c, md_gen)
+  torch.cuda.synchronize()
+  seconds_c = time.perf_counter() - t0
+  counted = dict(_build.LAUNCHES)
+  path_launches['path_c_multi_dopant_3_256'] = counted
+  obs_d = dict(obs_c, image=clahe_lib.equalize_adapthist(
+      noisy_c, clip_limit=0.01)[..., None])
+  actions_d = torch.clamp(policy_c(md_gen, obs_d), -1.0, 1.0)
+  close = int(((actions_c - actions_d).abs().amax(dim=-1) <= 0.05).sum())
+  print(f'path C (reset -> fused splat -> noise_chain -> interpolation route '
+        f'-> UNet -> multi-dopant vision policy -> step): {seconds_c:.2f} s, '
+        f'{close} of 100 actions within 0.05 of the default CLAHE route\'s, '
+        f'launches {counted}', flush=True)
+  check(tuple(actions_c.shape) == (100, 2)
+        and bool(torch.isfinite(actions_c).all())
+        and float(actions_c.abs().max()) <= 1.0, 'path C actions')
+  check(close >= 99, 'path C actions differ from the default CLAHE route')
+  check(bool(torch.isfinite(md_ts.observation['image']).all())
+        and bool(torch.isfinite(md_ts.reward).all()), 'path C env step')
+  for name in ('splat_render', 'clahe_interp', 'noise_chain'):
+    check(counted[name] > 0, f'{name} was not launched on path C')
+  del md_env, md_state, md_ts, md_agent, policy_c, obs_c, obs_d, noisy_c
+  torch.cuda.empty_cache()
+
+  # -- 14. path A: the multi-dopant control loop on vector observations ---------
+  path_launches['multi_dopant_3_planner'] = run_eval(
+      'multi_dopant_3_planner', 0.95, path='path A')
+  run_eval('multi_dopant_2_distilled', 0.75, suite='tiny_eval', path='path A')
+
+  # -- 15. path B: the multi-dopant perception loop ------------------------------
+  counted = run_eval('multi_dopant_3_vision_planner', 0.80)
+  path_launches['multi_dopant_3_vision_planner_256'] = counted
+  for name in ('noise_chain', 'clahe_hist_lut', 'clahe_remap'):
+    check(counted[name] > 0,
+          f'{name} was not launched on the multi-dopant path B')
+  for name in ('splat_render', 'clahe_interp', 'clahe_small'):
+    check(counted[name] == 0, f'{name} launched on a default route')
+
+  # -- 16. kernels line --------------------------------------------------------
   kernels = []
   for name, (ms, plain_ms, err, bound_ms, bound_by, source) in rows.items():
     by_path = {path: counts[name] for path, counts in path_launches.items()}
@@ -541,7 +774,8 @@ def main() -> None:
         'name': name, 'route': 'cuda', 'source': source,
         'replaces': TPU_SITES[name], 'launches': total,
         'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
-        'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
+        'bound_ms': bound_ms, 'bound_by': bound_by,
+        'library_ms': library.get(name),
         'shape': list(shapes[name]), 'launches_by_path': by_path,
         'other_shapes': other_shapes[name],
     })

@@ -1,6 +1,7 @@
 """Rate-aware planning controller: per-step beam optimization on the device.
 
-Port of `make_candidate_offsets`, `planner_policy` and `PlannerAgent` of
+Port of `make_candidate_offsets`, `planner_policy`, `PlannerAgent`,
+`multi_dopant_planner_policy` and `MultiDopantPlannerAgent` of
 putting_dune_tpu/agents/planner.py. Every step, for the whole batch, a
 dense polar grid of K candidate beam offsets is scored against the rate
 law:
@@ -11,7 +12,8 @@ law:
 
 p_i is the probability that the first transition within the dwell moves
 the silicon to neighbor i; v_i is that move's progress toward the goal in
-angstroms. The multi-dopant planner is not ported yet.
+angstroms. The multi-dopant planner scores the same grid around the
+anchor dopant of the D-dopant env (env/multi_dopant.py).
 """
 
 from __future__ import annotations
@@ -198,6 +200,86 @@ def planner_policy(
   span = torch.clamp(dwells[-1] - dwells[0], min=1e-9)
   dwell_frac = (dwells[best_d] - dwells[0]) / span
   return torch.cat([cand[best_k], dwell_frac[:, None]], dim=-1)
+
+
+def multi_dopant_planner_policy(
+    gen: Optional[torch.Generator],
+    observation: torch.Tensor,
+    *,
+    rate_fn: rates_lib.RateFunction,
+    num_dopants: int,
+    dwell_seconds: float,
+    max_distance_angstroms: float,
+    candidates,
+) -> torch.Tensor:
+  """Planner for the D-dopant env ('relative' actions + 'vector_neighbors'
+  observations).
+
+  The env steers one beam anchored at the first unlatched dopant; this
+  policy scores candidate beam offsets around that anchor by the expected
+  progress of the anchor toward its goal, the single-dopant planner's
+  first-transition law on the anchor's geometry.
+
+  Args:
+    gen: unused.
+    observation: (B, D*4 + 6), per-dopant [x, y, goal_dx, goal_dy] plus
+      the anchor's 3 neighbor deltas.
+    rate_fn: the env's rate function (planning model).
+    num_dopants: D.
+    dwell_seconds: the env's fixed dwell.
+    max_distance_angstroms: the env's action scale; actions are emitted in
+      units of it (the env clips them to [-1, 1]).
+    candidates: (K, 2) candidate beam offsets, angstroms.
+
+  Returns:
+    (B, 2) actions in units of max_distance_angstroms.
+  """
+  batch = observation.shape[0]
+  d = num_dopants
+  per = observation[:, : d * 4].reshape(batch, d, 4)
+  nbr_deltas = observation[:, d * 4:].reshape(batch, 3, 2)
+
+  # Anchor = first dopant with a live (nonzero) goal delta: latched
+  # dopants read zero delta, and the env anchors on the first unlatched.
+  live = torch.linalg.vector_norm(per[..., 2:4], dim=-1) > 1e-6  # (B, D)
+  pick = torch.argmax(live.to(torch.int32), dim=-1)  # (B,)
+  anchor = per[torch.arange(batch, device=per.device), pick]  # (B, 4)
+  single_obs = torch.cat(
+      [anchor[:, 0:2], nbr_deltas.reshape(batch, 6), anchor[:, 2:4]], dim=-1)
+  action_angstroms = planner_policy(
+      gen, single_obs, rate_fn=rate_fn, dwell_seconds=dwell_seconds,
+      candidates=candidates,
+  )
+  return action_angstroms / max_distance_angstroms
+
+
+@dataclasses.dataclass
+class MultiDopantPlannerAgent:
+  """Registry agent for MultiDopantExperiment; `policy()` is the batched
+  policy for eval_lib.evaluate_batched."""
+
+  rate_fn: rates_lib.RateFunction
+  num_dopants: int
+  dwell_seconds: float = 5.0
+  max_distance_angstroms: float = 2.84
+  num_radii: int = 10
+  num_angles: int = 64
+
+  def policy(self):
+    candidates = make_candidate_offsets(
+        num_radii=self.num_radii,
+        num_angles=self.num_angles,
+        max_radius=self.max_distance_angstroms,
+    )
+    return lambda gen, obs: multi_dopant_planner_policy(
+        gen,
+        obs,
+        rate_fn=self.rate_fn,
+        num_dopants=self.num_dopants,
+        dwell_seconds=self.dwell_seconds,
+        max_distance_angstroms=self.max_distance_angstroms,
+        candidates=candidates,
+    )
 
 
 @dataclasses.dataclass

@@ -1,6 +1,6 @@
 """Vision planner: pixels -> detector maps -> lattice geometry -> planning.
 
-Port of the single-dopant part of putting_dune_tpu/agents/vision_planner.py.
+Port of putting_dune_tpu/agents/vision_planner.py.
 The shipped segmentation UNet turns the STEM frame into class probability
 maps; closed-form harmonic analysis of those maps recovers the silicon
 position, the lattice scale and the bond orientation; the rate-aware
@@ -12,7 +12,9 @@ planner (agents/planner.py) then optimizes the beam on that geometry:
   * bond orientation: the third angular harmonic of carbon mass in the
     bond annulus (its argument / 3 is the neighbor angle set).
 
-`extract_peaks` and the multi-dopant policies are not ported yet.
+For D dopants `extract_peaks` finds the D silicon peaks, and the lattice
+frame is measured at the anchor peak (the first one, in the env's
+lexicographic position order, whose goal delta is live).
 """
 
 from __future__ import annotations
@@ -174,6 +176,50 @@ def load_shipped_detector(
   return detector_fn
 
 
+def _pixel_grid(size: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+  """Math-frame pixel centres (x right, y up; row 0 is the image top)."""
+  xs = torch.arange(size, dtype=torch.float32, device=device) + 0.5
+  return xs[None, :].expand(size, size), (size - xs)[:, None].expand(size, size)
+
+
+def extract_peaks(
+    p_map: torch.Tensor,
+    num_peaks: int,
+    min_separation_px: float,
+    sharpen: float = 4.0,
+) -> torch.Tensor:
+  """Extracts num_peaks distinct maxima from (B, S, S) probability maps.
+
+  Iterative suppression: a hard argmax locates each peak, a sharpened
+  soft-argmax over the surrounding half-separation disk refines it to
+  sub-pixel, then the full separation disk is zeroed for later rounds.
+
+  Returns:
+    (B, num_peaks, 2) math-frame pixel positions (x right, y up), in
+    extraction order (descending peak height).
+  """
+  b, s, _ = p_map.shape
+  x, y = _pixel_grid(s, p_map.device)
+  x_flat, y_flat = x.reshape(-1), y.reshape(-1)
+  remaining = torch.clamp(p_map, min=0.0)
+  peaks = []
+  for _ in range(num_peaks):
+    idx = torch.argmax(remaining.reshape(b, -1), dim=-1)  # (B,)
+    cx, cy = x_flat[idx], y_flat[idx]
+    r2 = (torch.square(x[None] - cx[:, None, None])
+          + torch.square(y[None] - cy[:, None, None]))
+    refine = r2 < (0.5 * min_separation_px) ** 2
+    w = torch.pow(
+        torch.where(refine, remaining, torch.zeros_like(remaining)), sharpen)
+    wsum = torch.clamp(torch.sum(w, dim=(1, 2)), min=1e-12)
+    px = torch.sum(w * x[None], dim=(1, 2)) / wsum
+    py = torch.sum(w * y[None], dim=(1, 2)) / wsum
+    peaks.append(torch.stack([px, py], dim=-1))
+    remaining = torch.where(
+        r2 < min_separation_px ** 2, torch.zeros_like(remaining), remaining)
+  return torch.stack(peaks, dim=1)
+
+
 def snap_to_honeycomb(delta: torch.Tensor, theta0: torch.Tensor
                       ) -> torch.Tensor:
   """Snaps (B, 2) displacement vectors to the nearest honeycomb vector.
@@ -218,6 +264,46 @@ def snap_to_honeycomb(delta: torch.Tensor, theta0: torch.Tensor
   return best
 
 
+def _plan_from_frame(
+    theta0: torch.Tensor,
+    goal_delta: torch.Tensor,
+    *,
+    rate_fn: rates_lib.RateFunction,
+    dwell_seconds: float,
+    max_distance_angstroms: float,
+    candidates,
+    snap_goal_to_lattice: bool,
+) -> torch.Tensor:
+  """Plans on the detected bond orientation: the three neighbor deltas at
+  theta0 + {0, 120, 240} degrees, one bond long (the detected lattice
+  calibrates the pixel scale itself), with the silicon at the origin."""
+  batch, device = theta0.shape[0], theta0.device
+  angles = theta0[:, None] + torch.tensor(
+      [0.0, 2.0 * math.pi / 3.0, 4.0 * math.pi / 3.0], device=device
+  )  # (B, 3)
+  deltas = BOND * torch.stack(
+      [torch.cos(angles), torch.sin(angles)], dim=-1
+  )  # (B, 3, 2)
+  if snap_goal_to_lattice:
+    goal_delta = snap_to_honeycomb(goal_delta, theta0)
+  single_obs = torch.cat(
+      [
+          torch.zeros((batch, 2), device=device),  # relative geometry
+          deltas.reshape(batch, 6),
+          goal_delta,
+      ],
+      dim=-1,
+  )
+  action_angstroms = planner_lib.planner_policy(
+      None,
+      single_obs,
+      rate_fn=rate_fn,
+      dwell_seconds=dwell_seconds,
+      candidates=candidates,
+  )
+  return action_angstroms / max_distance_angstroms
+
+
 def vision_planner_policy_from_probs(
     probs: torch.Tensor,
     goal_delta: torch.Tensor,
@@ -235,34 +321,11 @@ def vision_planner_policy_from_probs(
   exact site displacement (see snap_to_honeycomb). Returns (B, 2) actions
   in units of max_distance_angstroms.
   """
-  batch = probs.shape[0]
   _, _, theta0 = estimate_lattice_frame(probs[..., 2], probs[..., 1])
-  angles = theta0[:, None] + torch.tensor(
-      [0.0, 2.0 * math.pi / 3.0, 4.0 * math.pi / 3.0], device=probs.device
-  )  # (B, 3)
-  # Neighbor deltas in angstroms: the detected lattice calibrates the
-  # pixel scale itself (bond_px pixels are one bond length).
-  deltas = BOND * torch.stack(
-      [torch.cos(angles), torch.sin(angles)], dim=-1
-  )  # (B, 3, 2)
-  if snap_goal_to_lattice:
-    goal_delta = snap_to_honeycomb(goal_delta, theta0)
-  single_obs = torch.cat(
-      [
-          torch.zeros((batch, 2), device=probs.device),  # relative geometry
-          deltas.reshape(batch, 6),
-          goal_delta,
-      ],
-      dim=-1,
-  )
-  action_angstroms = planner_lib.planner_policy(
-      None,
-      single_obs,
-      rate_fn=rate_fn,
-      dwell_seconds=dwell_seconds,
-      candidates=candidates,
-  )
-  return action_angstroms / max_distance_angstroms
+  return _plan_from_frame(
+      theta0, goal_delta, rate_fn=rate_fn, dwell_seconds=dwell_seconds,
+      max_distance_angstroms=max_distance_angstroms, candidates=candidates,
+      snap_goal_to_lattice=snap_goal_to_lattice)
 
 
 def vision_planner_policy(
@@ -301,6 +364,134 @@ def vision_planner_policy(
       max_distance_angstroms=max_distance_angstroms,
       candidates=candidates,
   )
+
+
+def multi_dopant_vision_planner_policy_from_probs(
+    probs: torch.Tensor,
+    deltas: torch.Tensor,
+    *,
+    rate_fn: rates_lib.RateFunction,
+    num_dopants: int,
+    dwell_seconds: float,
+    max_distance_angstroms: float,
+    candidates,
+    min_separation_px: float = 6.0,
+    live: Optional[torch.Tensor] = None,
+    snap_goal_to_lattice: bool = False,
+) -> torch.Tensor:
+  """D-dopant planner core over precomputed class-probability maps.
+
+  probs: (B, S, S, 3); deltas: (B, D, 2) goal deltas in position order.
+  `live` overrides the latched-dopant mask (norm > 1e-6 by default; a
+  caller that adds a correction to the deltas passes the mask of the
+  uncorrected ones, since latched entries read exactly zero);
+  snap_goal_to_lattice snaps the anchor's goal vector to the nearest exact
+  site displacement. Returns (B, 2) actions in units of
+  max_distance_angstroms.
+  """
+  batch = probs.shape[0]
+  device = probs.device
+  p_carbon, p_si = probs[..., 1], probs[..., 2]
+
+  peaks = extract_peaks(p_si, num_dopants, min_separation_px)
+  # The env's lexicographic (x, y) order (MultiDopantEnv._position_key).
+  lex = peaks[..., 0] * 4096.0 + peaks[..., 1]
+  order = torch.argsort(lex, dim=-1, stable=True)
+  peaks = torch.gather(peaks, 1, order[..., None].expand(-1, -1, 2))
+
+  if live is None:
+    live = torch.linalg.vector_norm(deltas, dim=-1) > 1e-6  # (B, D)
+  pick = torch.argmax(live.to(torch.int32), dim=-1)  # first unlatched
+  rows = torch.arange(batch, device=device)
+  anchor_px = peaks[rows, pick]
+  goal_delta = deltas[rows, pick]
+
+  # Local lattice frame at the anchor: the Si map is masked to the
+  # anchor's disk, so the soft-argmax and the carbon histograms centre on
+  # it (other dopants are silicon-class and leave the carbon shells alone).
+  x, y = _pixel_grid(p_si.shape[1], device)
+  r2 = (torch.square(x[None] - anchor_px[:, 0][:, None, None])
+        + torch.square(y[None] - anchor_px[:, 1][:, None, None]))
+  masked_si = torch.where(
+      r2 < (0.5 * min_separation_px) ** 2, p_si, torch.zeros_like(p_si))
+  _, _, theta0 = estimate_lattice_frame(masked_si, p_carbon)
+  return _plan_from_frame(
+      theta0, goal_delta, rate_fn=rate_fn, dwell_seconds=dwell_seconds,
+      max_distance_angstroms=max_distance_angstroms, candidates=candidates,
+      snap_goal_to_lattice=snap_goal_to_lattice)
+
+
+def multi_dopant_vision_planner_policy(
+    gen: Optional[torch.Generator],
+    observation,
+    *,
+    detector_fn,
+    rate_fn: rates_lib.RateFunction,
+    num_dopants: int,
+    dwell_seconds: float,
+    max_distance_angstroms: float,
+    candidates,
+    min_separation_px: float = 6.0,
+) -> torch.Tensor:
+  """Pixels to control for the D-dopant env, with no training.
+
+  Requires the env's anchor_order='position': the env lists goal deltas in
+  lexicographic dopant-position order and anchors 'relative' actions on
+  the first unlatched dopant in that order, which this policy reproduces
+  from the detected peaks alone.
+
+  Args:
+    observation: {'image': (B, S, S, 1),
+                  'goal_delta_angstroms': (B, D*2)}, position-ordered.
+
+  Returns:
+    (B, 2) actions in units of max_distance_angstroms (beam offset from
+    the anchor dopant).
+  """
+  del gen
+  image = observation['image']
+  deltas = observation['goal_delta_angstroms'].reshape(
+      image.shape[0], num_dopants, 2)
+  probs = torch.softmax(detector_fn(image), dim=-1)
+  return multi_dopant_vision_planner_policy_from_probs(
+      probs, deltas, rate_fn=rate_fn, num_dopants=num_dopants,
+      dwell_seconds=dwell_seconds,
+      max_distance_angstroms=max_distance_angstroms, candidates=candidates,
+      min_separation_px=min_separation_px,
+  )
+
+
+@dataclasses.dataclass
+class MultiDopantVisionPlannerAgent:
+  """Registry agent: pixels to control for the D-dopant env. Requires the
+  env's anchor_order='position' and 'image' observations."""
+
+  rate_fn: rates_lib.RateFunction
+  num_dopants: int
+  dwell_seconds: float = 5.0
+  max_distance_angstroms: float = 2.0 * BOND
+  weights_dir: Optional[str] = None
+  min_separation_px: float = 6.0
+  device: Optional[str] = None
+
+  def __post_init__(self):
+    self._detector_fn = load_shipped_detector(self.weights_dir, self.device)
+    self._candidates = planner_lib.make_candidate_offsets(
+        max_radius=self.max_distance_angstroms
+    )
+
+  def policy(self):
+    return lambda gen, obs: multi_dopant_vision_planner_policy(
+        gen,
+        obs,
+        detector_fn=self._detector_fn,
+        rate_fn=self.rate_fn,
+        num_dopants=self.num_dopants,
+        dwell_seconds=self.dwell_seconds,
+        max_distance_angstroms=self.max_distance_angstroms,
+        candidates=self._candidates,
+        min_separation_px=self.min_separation_px,
+    )
 
 
 @dataclasses.dataclass

@@ -9,12 +9,21 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
+import numpy as np
 import torch
 
 from putting_dune_torch import geometry
 from putting_dune_torch import structures
 from putting_dune_torch.env import goals as goals_lib
 from putting_dune_torch.imaging import render as render_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class FeatureSpec:
+  """Shape and dtype of one observation array (without the batch dim)."""
+
+  shape: tuple[int, ...]
+  dtype: type = np.float32
 
 
 def _goal_delta_angstroms(obs: structures.MicroscopeObservation,

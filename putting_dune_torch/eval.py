@@ -4,7 +4,10 @@
       [--eval_suite=small_eval] [--device=cpu]
 
 Experiments: relative_random_simple, greedy_simple_rates,
-ppo_simple_images_tf, planner_simple_rates, vision_planner_simple_rates.
+ppo_simple_images_tf, planner_simple_rates, vision_planner_simple_rates,
+and the multi-dopant ones (registry.multi_dopant_experiment_names():
+multi_dopant_{2,3,4}_planner, multi_dopant_{2,3,4}_random,
+multi_dopant_{2,3}_{ppo,distilled,vision_planner}).
 
 Runs the suite as one batch of environments (CUDA by default; raises if
 CUDA is absent unless --device=cpu) and prints the aggregate as JSON.
@@ -14,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import time
@@ -31,16 +35,28 @@ class Args:
 
 def policy_for_agent(agent):
   """The batched policy of what an experiment's `get_policy` returned (the
-  JAX package's `_policy_for_agent`): a registry agent (PlannerAgent,
-  VisionPlannerAgent) exposes `policy()`; anything else already is a
+  JAX package's `_policy_for_agent`): a registry agent (the planner and
+  vision-planner agents) exposes `policy()`; anything else already is a
   `(gen, observation) -> action` callable."""
-  from putting_dune_torch.agents import planner as planner_lib
-  from putting_dune_torch.agents import vision_planner as vision_planner_lib
+  return agent.policy() if hasattr(agent, 'policy') else agent
 
-  if isinstance(agent, (planner_lib.PlannerAgent,
-                        vision_planner_lib.VisionPlannerAgent)):
-    return agent.policy()
-  return agent
+
+def _multi_dopant_env_and_policy(args: Args, batch_size: int, device):
+  """The env and batched policy of a D-dopant experiment; uniform random
+  over the action spec where the experiment names no agent."""
+  from putting_dune_torch import registry
+  from putting_dune_torch.agents import agent_lib
+
+  experiment = registry.create_multi_dopant_experiment(args.experiment_name)
+  kwargs = {} if args.image_size is None else {'image_size': args.image_size}
+  env = experiment.make_env(
+      batch_size, step_limit=args.step_limit, device=device, **kwargs)
+  if experiment.get_agent is not None:
+    return env, policy_for_agent(experiment.get_agent(device))
+  spec = env.action_spec()
+  return env, functools.partial(
+      agent_lib.uniform_random_policy, low=spec.minimum, high=spec.maximum,
+      action_dim=spec.shape[0])
 
 
 def main(args: Args) -> dict:
@@ -52,15 +68,18 @@ def main(args: Args) -> dict:
 
   device = device_lib.resolve_device(args.device)
   seeds = eval_lib.EVAL_SUITES[args.eval_suite]
-  experiment = registry.create_eval_experiment(args.experiment_name)
-  adapters_and_goal = experiment.get_adapters_and_goal()
-  policy = policy_for_agent(
-      experiment.get_policy(adapters_and_goal, device))
-  env = run_helpers.create_batched_env(
-      experiment.get_adapters_and_goal, experiment.get_simulator_config,
-      batch_size=len(seeds), step_limit=args.step_limit,
-      image_size=args.image_size, device=device,
-  )
+  if args.experiment_name in registry.multi_dopant_experiment_names():
+    env, policy = _multi_dopant_env_and_policy(args, len(seeds), device)
+  else:
+    experiment = registry.create_eval_experiment(args.experiment_name)
+    adapters_and_goal = experiment.get_adapters_and_goal()
+    policy = policy_for_agent(
+        experiment.get_policy(adapters_and_goal, device))
+    env = run_helpers.create_batched_env(
+        experiment.get_adapters_and_goal, experiment.get_simulator_config,
+        batch_size=len(seeds), step_limit=args.step_limit,
+        image_size=args.image_size, device=device,
+    )
   t0 = time.perf_counter()
   results = eval_lib.evaluate_batched(env, policy, seeds)
   if device.type == 'cuda':
@@ -98,7 +117,8 @@ def _parse_args(argv=None) -> Args:
   parser.add_argument('--eval_suite', default='tiny_eval')
   parser.add_argument('--step_limit', type=int, default=600)
   parser.add_argument('--image_size', type=int, default=None,
-                      help='Rendered frame size (default 512).')
+                      help='Rendered frame size (default: 512, or the '
+                      "multi-dopant experiment's own).")
   parser.add_argument('--device', default=None,
                       help="'cuda' (default) or 'cpu'.")
   return Args(**vars(parser.parse_args(argv)))

@@ -86,7 +86,7 @@ def suite_seed(seeds: Sequence[int]) -> int:
 
 
 def evaluate_batched(
-    env: env_lib.PuttingDuneEnv,
+    env,
     policy: Policy,
     seeds: Sequence[int],
     *,
@@ -95,13 +95,14 @@ def evaluate_batched(
   """Evaluates a batched policy over one batch of environments.
 
   Args:
-    env: the batched environment; env.batch_size must equal len(seeds).
+    env: the batched environment (PuttingDuneEnv or MultiDopantEnv);
+      env.batch_size must equal len(seeds).
     policy: (gen, observation) -> action.
     seeds: one seed per environment; the generator is seeded from the
       whole list (suite_seed).
     timeout_seconds: combined per-episode budget (simulated seconds plus
       the batch-shared wall clock since the rollout started); the step
-      cap is env.config.step_limit (600 if None).
+      cap is env.config.step_limit or env.step_limit (600 if neither).
 
   Returns:
     One EvalResult per seed, in order.
@@ -109,7 +110,10 @@ def evaluate_batched(
   if env.batch_size != len(seeds):
     raise ValueError(
         f'env.batch_size={env.batch_size} != len(seeds)={len(seeds)}')
-  max_steps = env.config.step_limit or 600
+  # PuttingDuneEnv keeps the limit in its config, MultiDopantEnv inline.
+  config = getattr(env, 'config', None)
+  max_steps = (getattr(config, 'step_limit', None)
+               or getattr(env, 'step_limit', None) or 600)
   device = env.device
   gen = env_lib.make_generator(suite_seed(seeds), device)
 

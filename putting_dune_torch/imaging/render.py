@@ -5,10 +5,11 @@ The clean frame is a separable Gaussian splat of the atoms in view:
     image[y, x] = sum_k w_k * K(y - bin_y(k)) * K(x - bin_x(k))
 
 which is one batched matrix product per frame, (Gy * w)^T @ Gx, left to
-`torch.bmm` as the JAX package leaves it to an XLA einsum. The noisy
-pipeline is splat -> fused noise chain (ops/noise_fused.py) -> CLAHE
-(imaging/clahe.py). `render_label_mask` paints the per-pixel class labels
-the atom detector is trained on.
+`torch.bmm` as the JAX package leaves it to an XLA einsum; with
+`backend='fused'` the frame comes from the one-kernel splat of
+ops/splat.py instead. The noisy pipeline is splat -> fused noise chain
+(ops/noise_fused.py) -> CLAHE (imaging/clahe.py). `render_label_mask`
+paints the per-pixel class labels the atom detector is trained on.
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ from putting_dune_torch import geometry
 from putting_dune_torch import structures
 from putting_dune_torch.imaging import clahe as clahe_lib
 from putting_dune_torch.ops import noise_fused
+from putting_dune_torch.ops import splat as splat_lib
+
+SPLAT_BACKENDS = ('auto', 'fused')
 
 
 def _splat_axis_kernels(
@@ -64,13 +68,27 @@ def render_clean_image(
     *,
     image_size: int = 512,
     blur_amount: Optional[torch.Tensor] = None,
+    backend: str = 'auto',
 ) -> torch.Tensor:
   """Max-normalized clean STEM frames, (B, S, S) float32; row 0 is the
-  top of the image."""
+  top of the image.
+
+  backend: 'auto' is the batched matrix product below (the JAX package's
+  'auto' and 'xla'); 'fused' is the one-kernel splat of ops/splat.py (the
+  JAX package's backend='pallas'): no (B, K, S) factor tensors, exp() per
+  profile entry instead of per (atom, pixel).
+  """
+  if backend not in SPLAT_BACKENDS:
+    raise ValueError(
+        f'backend must be one of {SPLAT_BACKENDS}, got {backend!r}.')
   s = image_size
   bx, by, weights, sigma_x, sigma_y = _splat_inputs(
       window, fov, intensity_exponent, s, blur_amount
   )
+  if backend == 'fused':
+    return splat_lib.splat_render(
+        bx.contiguous(), by.contiguous(), weights.contiguous(),
+        sigma_x.contiguous(), sigma_y.contiguous(), image_size=s)
   gx = _splat_axis_kernels(bx, sigma_x, s)  # (B, K, S)
   gy = _splat_axis_kernels(by, sigma_y, s) * weights[..., None]
   image = torch.bmm(gy.transpose(1, 2), gx)  # (B, S_y, S_x)

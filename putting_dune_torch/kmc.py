@@ -1,9 +1,9 @@
 """Batched kinetic-Monte-Carlo engine for dopant transitions.
 
-Port of putting_dune_tpu/kmc.py `apply_control`. The JAX package runs the
-whole batch inside one lax.while_loop; here the same body is torch ops in
-a Python loop that runs while any lane is active. The laws are the JAX
-package's:
+Port of putting_dune_tpu/kmc.py `apply_control` and `apply_control_multi`.
+The JAX package runs the whole batch inside one lax.while_loop; here the
+same body is torch ops in a Python loop that runs while any lane is
+active. The laws are the JAX package's:
 
   * waiting time dt = -log1p(-u0) / total, clipped at 3600 s;
   * an event fires when elapsed + dt <= dwell, the loop continues while
@@ -133,3 +133,93 @@ def apply_control(
     si, count, active = new_si, new_count, new_active
 
   return KMCResult(si, count, ev_t, ev_s, trunc)
+
+
+class MultiDopantKMCResult(NamedTuple):
+  """Outcome for multi-dopant exposures.
+
+  Attributes:
+    si_indices: (B, D) int64 final dopant sites.
+    num_transitions: (B,) int32 total events across all dopants.
+    truncated: (B,) bool, True where the lane hit max_events with dwell
+      time remaining.
+  """
+
+  si_indices: torch.Tensor
+  num_transitions: torch.Tensor
+  truncated: torch.Tensor
+
+
+def apply_control_multi(
+    gen: torch.Generator,
+    lattice: lattice_lib.Lattice,
+    offset: torch.Tensor,
+    theta: torch.Tensor,
+    si_indices: torch.Tensor,
+    beam_position: torch.Tensor,
+    dwell_seconds: torch.Tensor,
+    rate_fn: rates_lib.RateFunction,
+    *,
+    max_events: Optional[int] = None,
+) -> MultiDopantKMCResult:
+  """KMC over D dopants per environment (multi-channel KMC).
+
+  Each round evaluates all D dopants' neighbor rates, draws one
+  exponential waiting time from the summed rate (Exp(1) / max(total,
+  1e-30), clipped at 3600 s) and moves one (dopant, neighbor) pair chosen
+  categorically over the flat (B, D*3) rates. Moves onto sites occupied by
+  another dopant have rate 0. The categorical draw is an inverse-cdf draw
+  (the JAX package draws by Gumbel argmax; the law is the same).
+
+  Args:
+    si_indices: (B, D) current dopant sites.
+    max_events: optional per-env cap on total events during the dwell.
+    Everything else as apply_control; beam_position (B, 2) material frame.
+  """
+  device = si_indices.device
+  batch, num_dopants = si_indices.shape
+  si = si_indices.to(torch.int64)
+  elapsed = torch.zeros((batch,), device=device)
+  active = dwell_seconds > 0.0
+  count = torch.zeros((batch,), dtype=torch.int32, device=device)
+  trunc = torch.zeros((batch,), dtype=torch.bool, device=device)
+  dopant_ids = torch.arange(num_dopants, device=device)[None, :]
+
+  while bool(active.any()):
+    nbr_idx = lattice.neighbors[si]  # (B, D, 3)
+    si_pos = lattice_lib.site_position(lattice, si, offset, theta)
+    nbr_pos = lattice_lib.site_position(lattice, nbr_idx, offset, theta)
+    rates = torch.stack(
+        [rate_fn(si_pos[:, d], nbr_pos[:, d], beam_position)
+         for d in range(num_dopants)], dim=1)  # (B, D, 3)
+
+    occupied = (nbr_idx[..., None] == si[:, None, None, :]).any(-1)
+    rates = torch.where(occupied, torch.zeros_like(rates), rates)
+
+    flat_rates = rates.reshape(batch, num_dopants * 3)
+    cum = torch.cumsum(flat_rates, dim=-1)
+    total = cum[:, -1]
+    u = torch.rand((batch, 2), generator=gen, device=device)
+    dt = -torch.log1p(-u[:, 0]) / torch.clamp(total, min=1e-30)
+    dt = torch.clamp(dt, max=constants.MAX_WAITING_TIME_SECONDS)
+    new_elapsed = elapsed + dt
+    fired = active & (new_elapsed <= dwell_seconds)
+
+    # Inverse cdf: the first channel whose cumulative rate exceeds
+    # u * total; zero-rate channels are never chosen.
+    choice = torch.sum(
+        (u[:, 1:] * total[:, None]) >= cum[:, :-1], dim=-1)
+    dopant = choice // 3
+    target = torch.gather(
+        nbr_idx.reshape(batch, -1), 1, choice[:, None])[:, 0]
+    si = torch.where(
+        (dopant_ids == dopant[:, None]) & fired[:, None], target[:, None], si)
+    count = count + fired.to(torch.int32)
+    active = active & (new_elapsed < dwell_seconds)
+    if max_events is not None:
+      hit_cap = count >= max_events
+      trunc = trunc | (active & hit_cap)
+      active = active & ~hit_cap
+    elapsed = torch.where(active | fired, new_elapsed, elapsed)
+
+  return MultiDopantKMCResult(si, count, trunc)

@@ -37,7 +37,8 @@ NVCC_FLAGS = (
     '-shared', '-Xcompiler', '-fPIC',
 )
 
-KERNELS = ('noise_chain', 'clahe_hist_lut', 'clahe_remap', 'clahe_small')
+KERNELS = ('noise_chain', 'clahe_hist_lut', 'clahe_remap', 'clahe_small',
+           'splat_render', 'clahe_interp')
 
 LAUNCHES = {name: 0 for name in KERNELS}
 

@@ -4,7 +4,9 @@ putting_dune_tpu/experiments/registry.py).
 Same names and compositions as the JAX package for the experiments
 ported so far. An experiment's `get_policy(adapters_and_goal, device)`
 returns a batched policy `(gen, observation) -> action`, or an agent whose
-`policy()` gives one (eval.py `policy_for_agent`).
+`policy()` gives one (eval.py `policy_for_agent`). The multi-dopant
+experiments carry an env factory and, unless the policy is uniform random,
+a `get_agent(device)` with the same kind of result.
 """
 
 from __future__ import annotations
@@ -12,9 +14,10 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 from putting_dune_torch import constants
+from putting_dune_torch import lattice as lattice_lib
 from putting_dune_torch import rates as rates_lib
 from putting_dune_torch.agents import agent_lib
 from putting_dune_torch.agents import eval_agent
@@ -22,6 +25,7 @@ from putting_dune_torch.agents import planner as planner_lib
 from putting_dune_torch.agents import vision_planner as vision_planner_lib
 from putting_dune_torch.env import action_adapters
 from putting_dune_torch.env import features as features_lib
+from putting_dune_torch.env import multi_dopant
 
 BOND = constants.CARBON_BOND_DISTANCE_ANGSTROMS
 
@@ -179,3 +183,170 @@ def create_eval_experiment(name: str) -> EvalExperiment:
 
 def eval_experiment_names():
   return tuple(_EVAL_EXPERIMENTS)
+
+
+# -------------------- multi-dopant experiments -------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiDopantExperiment:
+  """Eval experiment over the D-dopant env.
+
+  make_env(batch_size, step_limit=..., device=...) builds the environment
+  (settings must match what the checkpoint, if any, was trained on);
+  get_agent(device) returns a batched policy or an agent with `policy()`
+  (eval.py `policy_for_agent`), and is None for a uniform-random policy.
+  """
+
+  make_env: Callable
+  get_agent: Optional[Callable] = None
+  num_dopants: int = 2
+
+
+def _make_multi_dopant_env(
+    batch_size: int,
+    *,
+    num_dopants: int,
+    dwell_seconds: float = 5.0,
+    grid_columns: int = 50,
+    step_limit: int = 600,
+    observation_mode: str = 'vector',
+    anchor_order: str = 'index',
+    image_size: int = 128,
+    include_fov: bool = False,
+    device=None,
+):
+  """Env factory matching the shipped multi_dopant_2 training settings:
+  lattice 50, simple rates, 5 s dwell, relative action mode, sticky
+  goals."""
+  from putting_dune_torch import device as device_lib
+
+  device = device_lib.resolve_device(device)
+  return multi_dopant.MultiDopantEnv(
+      lattice=lattice_lib.make_lattice(grid_columns, device),
+      rate_fn=rates_lib.simple_canonical_rates,
+      batch_size=batch_size,
+      num_dopants=num_dopants,
+      dwell_seconds=dwell_seconds,
+      step_limit=step_limit,
+      observation_mode=observation_mode,
+      anchor_order=anchor_order,
+      image_size=image_size,
+      include_fov=include_fov,
+      device=device,
+  )
+
+
+def _checkpoint_agent(model_name: str):
+  """get_agent for a shipped policy checkpoint."""
+  return functools.partial(_checkpoint_policy(model_name), None)
+
+
+@dataclasses.dataclass(frozen=True)
+class _MultiDopantPlannerFactory:
+  """get_agent for planner-driven multi-dopant experiments (needs the
+  'vector_neighbors' observation mode so the anchor geometry is visible)."""
+
+  num_dopants: int
+  dwell_seconds: float = 5.0
+
+  def __call__(self, device):
+    del device
+    return planner_lib.MultiDopantPlannerAgent(
+        rate_fn=rates_lib.simple_canonical_rates,
+        num_dopants=self.num_dopants,
+        dwell_seconds=self.dwell_seconds,
+        max_distance_angstroms=2.0 * BOND,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class _MultiDopantVisionPlannerFactory:
+  """get_agent for the D-dopant vision planner ('image' observations +
+  anchor_order='position')."""
+
+  num_dopants: int
+  dwell_seconds: float = 5.0
+
+  def __call__(self, device):
+    return vision_planner_lib.MultiDopantVisionPlannerAgent(
+        rate_fn=rates_lib.simple_canonical_rates,
+        num_dopants=self.num_dopants,
+        dwell_seconds=self.dwell_seconds,
+        max_distance_angstroms=2.0 * BOND,
+        device=device,
+    )
+
+
+def _vector_env(num_dopants, observation_mode='vector'):
+  return functools.partial(
+      _make_multi_dopant_env, num_dopants=num_dopants,
+      observation_mode=observation_mode)
+
+
+def _vision_env(num_dopants):
+  # anchor_order='position' makes the peak <-> goal association observable
+  # from the image alone; 256^2 is the detector's training size.
+  return functools.partial(
+      _make_multi_dopant_env, num_dopants=num_dopants,
+      observation_mode='image', anchor_order='position', image_size=256)
+
+
+# The JAX registry's entries less the two with instrument drift.
+_MULTI_DOPANT_EXPERIMENTS = {
+    'multi_dopant_2_ppo': MultiDopantExperiment(
+        make_env=_vector_env(2),
+        get_agent=_checkpoint_agent('multi_dopant_2'),
+        num_dopants=2,
+    ),
+    'multi_dopant_2_random': MultiDopantExperiment(
+        make_env=_vector_env(2), num_dopants=2),
+    'multi_dopant_3_random': MultiDopantExperiment(
+        make_env=_vector_env(3), num_dopants=3),
+    'multi_dopant_3_ppo': MultiDopantExperiment(
+        make_env=_vector_env(3),
+        get_agent=_checkpoint_agent('multi_dopant_3'),
+        num_dopants=3,
+    ),
+    # Rate-aware planner on the D-dopant env, no training.
+    **{
+        f'multi_dopant_{d}_planner': MultiDopantExperiment(
+            make_env=_vector_env(d, 'vector_neighbors'),
+            get_agent=_MultiDopantPlannerFactory(num_dopants=d),
+            num_dopants=d,
+        )
+        for d in (2, 3, 4)
+    },
+    'multi_dopant_4_random': MultiDopantExperiment(
+        make_env=_vector_env(4, 'vector_neighbors'), num_dopants=4),
+    # The multi-dopant planner distilled into MLPs, over the same
+    # 'vector_neighbors' observations the planner consumes.
+    **{
+        f'multi_dopant_{d}_distilled': MultiDopantExperiment(
+            make_env=_vector_env(d, 'vector_neighbors'),
+            get_agent=_checkpoint_agent(f'multi_dopant_{d}_distilled'),
+            num_dopants=d,
+        )
+        for d in (2, 3)
+    },
+    # Pixels to control for D dopants: shipped UNet -> per-dopant peaks ->
+    # anchor geometry -> planner.
+    **{
+        f'multi_dopant_{d}_vision_planner': MultiDopantExperiment(
+            make_env=_vision_env(d),
+            get_agent=_MultiDopantVisionPlannerFactory(num_dopants=d),
+            num_dopants=d,
+        )
+        for d in (2, 3)
+    },
+}
+
+
+def create_multi_dopant_experiment(name: str) -> MultiDopantExperiment:
+  if name not in _MULTI_DOPANT_EXPERIMENTS:
+    raise ValueError(f'Unknown multi-dopant experiment {name}.')
+  return _MULTI_DOPANT_EXPERIMENTS[name]
+
+
+def multi_dopant_experiment_names():
+  return tuple(_MULTI_DOPANT_EXPERIMENTS)

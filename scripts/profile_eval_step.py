@@ -3,8 +3,10 @@
   python scripts/profile_eval_step.py [--batch=100] [--steps=30]
       [--experiment_name=vision_planner_simple_rates]
 
-Runs the experiment (default `ppo_simple_images_tf`) at the 512^2 render
-for --steps env steps after a warm-up, three ways:
+Runs the experiment (default `ppo_simple_images_tf`, at the 512^2 render;
+a multi-dopant name such as `multi_dopant_3_vision_planner` or
+`multi_dopant_3_planner` runs the D-dopant env at its own frame size) for
+--steps env steps after a warm-up, three ways:
 
   1. plain: host wall clock per step (policy + env.step), synchronized;
   2. sections: the same loop with the KMC, the render (splat + noise +
@@ -48,12 +50,17 @@ def main(argv=None) -> None:
   def sync():
     if dev.type == 'cuda':
       torch.cuda.synchronize()
-  exp = registry.create_eval_experiment(args.experiment_name)
-  policy = eval_cli.policy_for_agent(
-      exp.get_policy(exp.get_adapters_and_goal(), dev))
-  env = run_helpers.create_batched_env(
-      exp.get_adapters_and_goal, exp.get_simulator_config,
-      batch_size=args.batch, device=dev)
+  multi = args.experiment_name in registry.multi_dopant_experiment_names()
+  if multi:
+    env, policy = eval_cli._multi_dopant_env_and_policy(
+        eval_cli.Args(experiment_name=args.experiment_name), args.batch, dev)
+  else:
+    exp = registry.create_eval_experiment(args.experiment_name)
+    policy = eval_cli.policy_for_agent(
+        exp.get_policy(exp.get_adapters_and_goal(), dev))
+    env = run_helpers.create_batched_env(
+        exp.get_adapters_and_goal, exp.get_simulator_config,
+        batch_size=args.batch, device=dev)
   gen = env_lib.make_generator(0, dev)
 
   def run(n, state, ts):
@@ -88,13 +95,16 @@ def main(argv=None) -> None:
         return out
       return wrapper
 
-    originals = (kmc.apply_control, render.render_stem_image,
-                 simulator.atom_window)
+    # Both envs reach these through the modules' attributes; the D-dopant
+    # env's atom window is a method.
+    originals = (kmc.apply_control, kmc.apply_control_multi,
+                 render.render_stem_image, simulator.atom_window)
     kmc.apply_control = timed('kmc', kmc.apply_control)
-    env_lib.imaging_render.render_stem_image = timed(
-        'render', render.render_stem_image)
-    env_lib.simulator_lib.atom_window = timed(
-        'atom_window', simulator.atom_window)
+    kmc.apply_control_multi = timed('kmc', kmc.apply_control_multi)
+    render.render_stem_image = timed('render', render.render_stem_image)
+    simulator.atom_window = timed('atom_window', simulator.atom_window)
+    if multi:
+      env._atom_window = timed('atom_window', env._atom_window)
     timed_policy = timed('policy', policy)
     sync()
     t0 = time.perf_counter()
@@ -103,10 +113,10 @@ def main(argv=None) -> None:
       state, ts = timed('env.step', env.step)(state, action, gen)
     sync()
     total = time.perf_counter() - t0
-    kmc.apply_control, render.render_stem_image, simulator.atom_window = (
-        originals)
-    env_lib.imaging_render.render_stem_image = originals[1]
-    env_lib.simulator_lib.atom_window = originals[2]
+    (kmc.apply_control, kmc.apply_control_multi, render.render_stem_image,
+     simulator.atom_window) = originals
+    if multi:
+      del env._atom_window
     print(f'sections (synchronized), per env step, total '
           f'{total / args.steps * 1e3:.3f} ms:', flush=True)
     for name in ('policy', 'env.step', 'kmc', 'render', 'atom_window'):

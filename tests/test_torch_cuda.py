@@ -13,8 +13,11 @@ import torch
 
 from putting_dune_torch.imaging import clahe as t_clahe
 from putting_dune_torch.ops import _build
+from putting_dune_torch.imaging import render as t_render
 from putting_dune_torch.ops import clahe_fused
+from putting_dune_torch.ops import clahe_interp
 from putting_dune_torch.ops import noise_fused
+from putting_dune_torch.ops import splat
 
 pytestmark = pytest.mark.cuda
 
@@ -139,3 +142,98 @@ def test_clahe_wrappers_refuse_on_cuda(cuda):
   with pytest.raises(ValueError, match='shared memory'):
     clahe_fused.clahe_small(torch.zeros((1, 64, 64), device=cuda),
                             grid_size=16, nbins=1024)
+
+
+def _splat_inputs(b, k, s, seed, device):
+  """Random integer bins, weights with a masked tail, sigmas ~ S / 54."""
+  rng = np.random.default_rng(seed)
+  bx = rng.integers(0, s, (b, k)).astype(np.float32)
+  by = rng.integers(0, s, (b, k)).astype(np.float32)
+  w = rng.uniform(10.0, 200.0, (b, k)).astype(np.float32)
+  w[:, k // 2:] = 0.0
+  sx = rng.uniform(0.8, 1.2, b).astype(np.float32) * s / 53.75
+  sy = rng.uniform(0.8, 1.2, b).astype(np.float32) * s / 53.75
+  return [torch.from_numpy(a).to(device) for a in (bx, by, w, sx, sy)]
+
+
+@pytest.mark.parametrize('b,k,s', [
+    (100, 512, 256), (100, 512, 512), (3, 77, 128), (2, 300, 100)])
+def test_splat_render_matches_twin_and_default_route(cuda, b, k, s):
+  bx, by, w, sx, sy = _splat_inputs(b, k, s, 5, cuda)
+  before = _build.LAUNCHES['splat_render']
+  got = splat.splat_render(bx, by, w, sx, sy, image_size=s)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES['splat_render'] == before + 1
+  want = splat.splat_render_reference(bx, by, w, sx, sy, image_size=s)
+  # f32 sums of the same products in another order, then one division.
+  assert float((got - want).abs().max()) <= 1e-5
+  gx = t_render._splat_axis_kernels(bx, sx, s)
+  gy = t_render._splat_axis_kernels(by, sy, s) * w[..., None]
+  image = torch.flip(torch.bmm(gy.transpose(1, 2), gx), dims=(-2,))
+  image = image / torch.clamp(
+      torch.amax(image, dim=(-2, -1), keepdim=True), min=1e-20)
+  assert float((got - image).abs().max()) <= 1e-5
+  assert float(got.amax()) == 1.0
+
+
+@pytest.mark.parametrize('b,k,p,v', [
+    (100, 81, 1024, 256), (100, 81, 4096, 256), (100, 81, 1024, 128),
+    (3, 25, 600, 1024), (2, 9, 35, 77)])
+def test_clahe_interp_matches_twin(cuda, b, k, p, v):
+  gen = torch.Generator(device=cuda).manual_seed(6)
+  blocks = torch.randint(0, v, (b, k, p), generator=gen, device=cuda,
+                         dtype=torch.int32)
+  luts = torch.rand((b, k, v, 4), generator=gen, device=cuda)
+  wgt = torch.rand((p, 4), generator=gen, device=cuda)
+  before = _build.LAUNCHES['clahe_interp']
+  got = clahe_interp.clahe_interpolate(blocks, luts, wgt)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES['clahe_interp'] == before + 1
+  want = clahe_interp.clahe_interpolate_reference(blocks, luts, wgt)
+  # Same four products summed in the same order: 1e-6 covers a last bit.
+  assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize('shape,nbins', [
+    ((100, 256, 256), 256), ((8, 512, 512), 256), ((4, 128, 128), 128)])
+def test_interp_route_matches_default_route(cuda, shape, nbins):
+  image = _skewed(shape, 7, cuda)
+  want = t_clahe.equalize_adapthist(image, nbins=nbins)
+  got = t_clahe.equalize_adapthist(image, nbins=nbins, backend='interp')
+  torch.cuda.synchronize()
+  assert float((got - want).abs().max()) <= 2e-5
+
+
+def test_new_kernels_never_call_their_twins(cuda, monkeypatch):
+  def boom(*args, **kwargs):
+    raise AssertionError('a plain twin ran on a CUDA tensor')
+
+  monkeypatch.setattr(splat, 'splat_render_reference', boom)
+  monkeypatch.setattr(clahe_interp, 'clahe_interpolate_reference', boom)
+  bx, by, w, sx, sy = _splat_inputs(2, 64, 128, 8, cuda)
+  out = splat.splat_render(bx, by, w, sx, sy, image_size=128)
+  out = t_clahe.equalize_adapthist(out, backend='interp')
+  torch.cuda.synchronize()
+  assert bool(torch.isfinite(out).all())
+
+
+def test_new_wrappers_refuse_bad_inputs(cuda):
+  bx, by, w, sx, sy = _splat_inputs(2, 64, 128, 9, cuda)
+  with pytest.raises(TypeError, match='bx'):
+    splat.splat_render(bx.to(torch.int32), by, w, sx, sy, image_size=128)
+  with pytest.raises(ValueError, match='contiguous'):
+    splat.splat_render(bx.t().contiguous().t(), by, w, sx, sy,
+                       image_size=128)
+  with pytest.raises(ValueError, match='devices'):
+    splat.splat_render(bx, by.cpu(), w, sx, sy, image_size=128)
+  blocks = torch.zeros((2, 9, 64), dtype=torch.int32, device=cuda)
+  luts = torch.zeros((2, 9, 256, 4), device=cuda)
+  wgt = torch.zeros((64, 4), device=cuda)
+  with pytest.raises(TypeError, match='blocks'):
+    clahe_interp.clahe_interpolate(blocks.to(torch.int64), luts, wgt)
+  with pytest.raises(ValueError, match='contiguous'):
+    clahe_interp.clahe_interpolate(blocks, luts.transpose(1, 2), wgt)
+  with pytest.raises(ValueError, match='devices'):
+    clahe_interp.clahe_interpolate(blocks, luts, wgt.cpu())
+  with pytest.raises(ValueError, match='luts'):
+    clahe_interp.clahe_interpolate(blocks, luts[:, :8].contiguous(), wgt)
