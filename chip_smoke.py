@@ -6,7 +6,9 @@ Phases (any failure exits non-zero before the final line):
   1. card name and power limit; CUDA must be available;
   2. build every CUDA kernel of the main path from csrc/ (nvcc, parallel);
   3. noise_chain against its plain twin at (100, 512, 512): injected draws
-     element-wise (max |d| <= 1e-5), in-kernel Philox draws in distribution;
+     element-wise (max |d| <= 1e-5); in-kernel Philox draws element-wise
+     against the twin fed `draws_from_seeds` (at most 1e-5 of the pixels may
+     differ; 0 is what the card gives) and in distribution;
   4. clahe_hist_lut + clahe_remap against their twins at (100, 512, 512),
      grid 8: histograms equal, max |d| <= 2e-5;
   5. each kernel timed (CUDA events, median of 30 launches) beside its
@@ -20,8 +22,11 @@ Phases (any failure exits non-zero before the final line):
      (256, 128, 128) and at (64, 128, 128) with 128 bins, and against the
      split pair at (8, 128, 128); the pair against its twins at
      (128, 256, 256), (64, 384, 384) and (64, 128, 128) with 128 bins
-     (histograms equal, max |d| <= 2e-5); noise_chain with injected draws
-     at (128, 256, 256); `clahe_small` and the pair timed with bounds;
+     (histograms equal, max |d| <= 2e-5) and at (16, 240, 360) on a 6 x 6
+     grid; noise_chain with injected draws at (128, 256, 256) and at
+     (3, 200, 328), whose rows do not divide over the blocks of a frame, and
+     with Philox draws element-wise at (128, 256, 256); `clahe_small`, the
+     pair and noise_chain at (100, 256, 256) timed with bounds;
   9. path A, generator + detector: `sample_batch` at batch 64, noisy, at
      128^2 (must launch `clahe_small`) and 256^2 (must launch the pair);
      shapes, ranges, one-hot masks; the shipped UNet's pixel accuracy on
@@ -65,15 +70,27 @@ import sys
 import time
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and f32
-# throughput outside the tensor cores.
+# throughput outside the tensor cores. The data sheet gives no int32 rate:
+# an SM has 64 int32 lanes beside its 128 f32 lanes, so half the f32 rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 33.5e12
 
-# f32 operations per pixel of the noise chain as the kernel runs it:
-# Poisson inversion (exp + 12 x 5) ~65, three renorm divides, S&P 2,
-# gamma 3, uniform 2, exponential 3, Gaussian 4, three max steps, plus
-# Box-Muller (log, sqrt, cos, sin, 4 mul) ~8 — about 96.
-NOISE_OPS_PER_PIXEL = 96
+# The least a noise chain with in-kernel draws does per pixel, from
+# csrc/noise_chain.cu, every transcendental and every divide as one
+# operation. int32: two Philox4x32-10 blocks of 10 rounds of two 32 x 32 ->
+# 64 multiplies (4 words) and 4 xors, and one shift for each of the six
+# uniforms. f32, whatever the pixel: six uniforms (convert, mul, add) 18; the
+# Box-Muller pair (max, log, mul, sqrt, mul, sin, cos, 2 mul) 9; lambda, its
+# clamp and its compare 3; three renorms (divide, running max, clamp) 9; salt
+# & pepper 5; gamma (compare, max, log, mul, exp, select) 6; uniform 2;
+# exponential (max, log, neg, mul, add) 5; Gaussian and clip 4. The Poisson
+# count adds 62 below lambda = 4 (neg, exp, 12 x (compare, add, 2 mul, add))
+# and 6 above (sqrt, mul, 2 add, floor, max): the bound counts this run's
+# pixels on each side.
+NOISE_INT_OPS_PER_PIXEL = 2 * 10 * 8 + 6
+NOISE_F32_OPS_PER_PIXEL = 18 + 9 + 3 + 9 + 5 + 6 + 2 + 5 + 4
+NOISE_POISSON_OPS = {'small': 62, 'large': 6}
 # clahe_hist_lut: scale, cast, clamp, shared atomic add per pixel.
 HIST_OPS_PER_PIXEL = 4
 # clahe_remap: bin (3), indices and weights (~12), 4 mul + 3 add.
@@ -154,10 +171,61 @@ def time_rotating_ms(fn, inputs, repeats=30) -> float:
   return time_ms(call, repeats=repeats, warmup=len(inputs))
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, int_ops: float = 0.0
+          ) -> tuple[float, str]:
+  """The larger of the bytes' time and the operations' time, in ms. f32 and
+  int32 operations leave through the same dispatch ports, so their times add."""
   t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-  t_ops = ops / F32_OPS_PER_S * 1e3
+  t_ops = (ops / F32_OPS_PER_S + int_ops / INT32_OPS_PER_S) * 1e3
   return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def noise_bound(clean, packed) -> dict:
+  """Both bounds of noise_chain on these frames, and the larger."""
+  npx = clean.numel()
+  small = float((clean * packed[:, 0, None, None] < 4.0).float().mean())
+  f32_ops = npx * (NOISE_F32_OPS_PER_PIXEL
+                   + small * NOISE_POISSON_OPS['small']
+                   + (1.0 - small) * NOISE_POISSON_OPS['large'])
+  nbytes = 8.0 * npx + packed.numel() * 4 + packed.shape[0] * 8
+  bound_ms, bound_by = bound(nbytes, f32_ops, NOISE_INT_OPS_PER_PIXEL * npx)
+  return {'bound_ms': bound_ms, 'bound_by': bound_by,
+          'bytes_bound_ms': bound(nbytes, 0)[0],
+          'operations_bound_ms': bound(0, f32_ops,
+                                       NOISE_INT_OPS_PER_PIXEL * npx)[0],
+          'small_lambda_share': small}
+
+
+def sass_summary(path: str, nvcc: str) -> list[str]:
+  """Static instruction counts of each kernel in a built library, from
+  `cuobjdump -sass` where the toolkit has it: total, integer multiplies,
+  logic, f32 arithmetic, special-function and memory instructions."""
+  import collections
+  import re
+
+  tool = os.path.join(os.path.dirname(nvcc), 'cuobjdump')
+  if not os.path.exists(tool):
+    return ['cuobjdump not found']
+  text = subprocess.run([tool, '-sass', path], capture_output=True, text=True,
+                        timeout=120).stdout
+  lines = []
+  for body in re.split(r'\n\s*Function : ', text)[1:]:
+    name = body.split('\n', 1)[0].strip()
+    ops = collections.Counter(
+        op.split('.')[0] for op in re.findall(
+            r'/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_.]+)', body))
+    groups = {
+        'imad': ops['IMAD'], 'lop3': ops['LOP3'],
+        'f32': sum(ops[k] for k in ('FFMA', 'FMUL', 'FADD', 'FMNMX', 'FSETP',
+                                    'FSET', 'FSEL')),
+        'mufu': ops['MUFU'],
+        'memory': sum(ops[k] for k in ('LDG', 'STG', 'LDS', 'STS', 'LD',
+                                       'ST')),
+    }
+    short = re.search(r'[a-z_]+_kernel(I\w{0,18})?', name)
+    lines.append(f'{short.group(0) if short else name[-40:]}: '
+                 f'{sum(ops.values())} instructions, {groups}')
+  return lines
 
 
 def main() -> None:
@@ -192,6 +260,10 @@ def main() -> None:
     for line in text.splitlines():
       if 'registers' in line or 'spill' in line:
         print(f'  ptxas {name}: {line.strip()}', flush=True)
+  for name in ('noise_chain', 'clahe_remap'):
+    for line in sass_summary(str(_build.library_path(name)),
+                             _build.nvcc_path()):
+      print(f'  sass {name}: {line}', flush=True)
 
   _build.reset_launches()
   b, h, w = 100, 512, 512
@@ -215,6 +287,25 @@ def main() -> None:
   philox = noise_fused.noise_chain(clean, packed, seeds=seeds)
   twin = noise_fused.noise_chain_reference(clean, packed, gen=gen)
   check(bool(torch.isfinite(philox).all()), 'noise_chain: non-finite output')
+
+  def hold_philox(frames_in, packed_in, seeds_in, got_out):
+    """Philox mode element-wise: the twin on the draws that
+    `draws_from_seeds` derives from the same seeds."""
+    shape = tuple(frames_in.shape)
+    want_out = noise_fused.noise_chain_reference(
+        frames_in, packed_in,
+        draws=noise_fused.draws_from_seeds(seeds_in, *shape, dev))
+    torch.cuda.synchronize()
+    err = float((got_out - want_out).abs().max())
+    differ = int((got_out != want_out).sum())
+    print(f'noise_chain philox draws {shape} against the twin fed '
+          f'draws_from_seeds: max|d| = {err:.3g}, {differ} of '
+          f'{got_out.numel()} pixels differ', flush=True)
+    check(differ <= 1e-5 * got_out.numel(),
+          f'noise_chain philox mode disagrees with its twin at {shape}')
+    return err
+
+  philox_err = hold_philox(clean, packed, seeds, philox)
   for stat in ('mean', 'std'):
     sk = getattr(philox, stat)(dim=(1, 2))
     st = getattr(twin, stat)(dim=(1, 2))
@@ -260,9 +351,14 @@ def main() -> None:
                                                     seeds=seeds))
   t_noise_plain = time_ms(lambda: noise_fused.noise_chain_reference(
       clean, packed, gen=gen), repeats=20)
+  nb_512 = noise_bound(clean, packed)
+  print(f"noise_chain (100, 512, 512) bounds: bytes "
+        f"{nb_512['bytes_bound_ms']:.4f} ms, operations "
+        f"{nb_512['operations_bound_ms']:.4f} ms (lambda < 4 on "
+        f"{nb_512['small_lambda_share']:.3f} of the pixels); philox mode "
+        f"max|d| {philox_err:.3g}", flush=True)
   rows['noise_chain'] = (t_noise, t_noise_plain, noise_err,
-                         *bound(8.0 * npx + packed.numel() * 4 + b * 8,
-                                NOISE_OPS_PER_PIXEL * npx),
+                         nb_512['bound_ms'], nb_512['bound_by'],
                          SOURCES['noise_chain'])
   t_hist = time_ms(lambda: clahe_fused.clahe_hist_lut(philox))
   t_hist_plain = time_ms(lambda: clahe_fused.hist_lut_reference(philox),
@@ -345,21 +441,22 @@ def main() -> None:
     check(err <= 2e-5, f'clahe_small disagrees with its twin at {shape}')
     return x, err
 
-  def hold_pair(shape, nbins):
+  def hold_pair(shape, nbins, grid=8):
     x = frames(shape)
-    hist_p, mapping_p = clahe_fused.clahe_hist_lut(x, nbins=nbins)
+    hist_p, mapping_p = clahe_fused.clahe_hist_lut(x, grid, nbins=nbins)
     out = clahe_fused.clahe_remap(x, mapping_p)
-    want_hist, want_mapping = clahe_fused.hist_lut_reference(x, nbins=nbins)
-    want = clahe_fused.clahe_reference(x, nbins=nbins)
+    want_hist, want_mapping = clahe_fused.hist_lut_reference(
+        x, grid, nbins=nbins)
+    want = clahe_fused.clahe_reference(x, grid_size=grid, nbins=nbins)
     torch.cuda.synchronize()
     errs = (float((mapping_p - want_mapping).abs().max()),
             float((out - clahe_fused.remap_reference(x, mapping_p))
                   .abs().max()),
             float((out - want).abs().max()))
-    print(f'clahe pair {shape} nbins {nbins}: histograms '
+    print(f'clahe pair {shape} nbins {nbins} grid {grid}: histograms '
           f'{"equal" if torch.equal(hist_p, want_hist) else "DIFFER"}, '
-          f'mapping max|d| = {errs[0]:.3g}, output max|d| = {errs[2]:.3g}',
-          flush=True)
+          f'mapping max|d| = {errs[0]:.3g}, remap max|d| = {errs[1]:.3g}, '
+          f'output max|d| = {errs[2]:.3g}', flush=True)
     check(bool(torch.equal(hist_p, want_hist)),
           f'clahe_hist_lut histograms differ at {shape}')
     check(max(errs) <= 2e-5, f'clahe pair disagrees with twins at {shape}')
@@ -378,6 +475,7 @@ def main() -> None:
   x_mid, map_mid, mid_errs = hold_pair((128, 256, 256), 256)
   hold_pair((64, 384, 384), 256)
   x_v128, map_v128, v128_errs = hold_pair((64, 128, 128), 128)
+  hold_pair((16, 240, 360), 256, grid=6)
 
   nb, nh, nw = 128, 256, 256
   params_mid = imaging_params.sample_imaging_params(gen, nb, device=dev,
@@ -392,6 +490,42 @@ def main() -> None:
         f'{noise_mid_err:.3g}', flush=True)
   check(noise_mid_err <= 1e-5, 'noise_chain disagrees with its twin at 256^2')
   del draws_mid
+  seeds_mid = torch.randint(0, 2**62, (nb,), generator=gen, device=dev)
+  hold_philox(x_mid, packed_mid, seeds_mid,
+              noise_fused.noise_chain(x_mid, packed_mid, seeds=seeds_mid))
+  # 200 rows over the blocks of a frame leave the last block short.
+  x_odd = frames((3, 200, 328))
+  packed_odd = packed_mid[:3].contiguous()
+  draws_odd = noise_fused.sample_draws(gen, 3, 200, 328, dev)
+  noise_odd_err = float((
+      noise_fused.noise_chain(x_odd, packed_odd, draws=draws_odd)
+      - noise_fused.noise_chain_reference(x_odd, packed_odd, draws=draws_odd)
+  ).abs().max())
+  print(f'noise_chain injected draws (3, 200, 328): max|d| = '
+        f'{noise_odd_err:.3g}', flush=True)
+  check(noise_odd_err <= 1e-5,
+        'noise_chain disagrees with its twin at (3, 200, 328)')
+  del draws_odd, x_odd
+
+  # noise_chain at the 256^2 render of the multi-dopant loop: four clean
+  # batches in turn (26 MB each, 105 MB together, above the 50 MB L2).
+  noise_inputs = [frames((100, 256, 256)) for _ in range(4)]
+  packed_100 = packed_mid[:100].contiguous()
+  seeds_100 = seeds_mid[:100].contiguous()
+  t_noise_mid = time_rotating_ms(
+      lambda x: noise_fused.noise_chain(x, packed_100, seeds=seeds_100),
+      noise_inputs)
+  t_noise_mid_plain = time_ms(lambda: noise_fused.noise_chain_reference(
+      noise_inputs[0], packed_100, gen=gen), repeats=10)
+  nb_256 = noise_bound(noise_inputs[0], packed_100)
+  other_shapes['noise_chain'].append({
+      'shape': [100, 256, 256], 'ms': t_noise_mid,
+      'plain_ms': t_noise_mid_plain, 'bound_ms': nb_256['bound_ms'],
+      'bound_by': nb_256['bound_by'],
+      'bytes_bound_ms': nb_256['bytes_bound_ms'],
+      'operations_bound_ms': nb_256['operations_bound_ms'],
+      'max_abs_err': noise_mid_err})
+  del noise_inputs
 
   # Times: four buffers in turn (67 MB and 134 MB of frames, above the
   # 50 MB L2), and the same launch on one buffer for the L2-warm time.
@@ -779,6 +913,11 @@ def main() -> None:
         'shape': list(shapes[name]), 'launches_by_path': by_path,
         'other_shapes': other_shapes[name],
     })
+    if name == 'noise_chain':
+      kernels[-1].update(
+          bytes_bound_ms=nb_512['bytes_bound_ms'],
+          operations_bound_ms=nb_512['operations_bound_ms'],
+          philox_max_abs_err=philox_err)
   print(json.dumps({'kernels': kernels}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -99,7 +99,11 @@ def remap_reference(image: torch.Tensor, mapping: torch.Tensor) -> torch.Tensor:
   def axis(n, t):
     pos = torch.arange(n, device=dev) + t // 2
     blk = pos // t
-    frac = ((pos - blk * t).to(torch.float32) + 0.5) / t
+    # Divided by a tensor: by a Python number PyTorch multiplies by the
+    # reciprocal on CUDA, which is a last bit off for tiles that are no power
+    # of two.
+    frac = ((pos - blk * t).to(torch.float32) + 0.5) / torch.full(
+        (), float(t), device=dev)
     lo = torch.clamp(blk - 1, 0, g - 1)
     hi = torch.clamp(blk, max=g - 1)
     return lo, hi, frac

@@ -8,6 +8,13 @@ the injected mode, with draws read from tensors. On CPU tensors it runs
 `noise_chain_reference`, a PyTorch transcription of the JAX package's
 `chain_from_uniforms`, which is also the kernel's oracle on the card.
 
+The kernel's generator has a plain twin too: `philox4x32_10` is
+Philox4x32-10 on integer tensors and `draws_from_seeds` derives the eight
+draw fields from per-image seeds exactly as the kernel does from its
+counters, so `noise_chain(image, packed, seeds=s)` can be held pixel by
+pixel against `noise_chain_reference(image, packed,
+draws=draws_from_seeds(s, ...))`.
+
 Distributional parity, not bitstream parity, with the JAX package: the
 draws come from another generator.
 """
@@ -180,6 +187,87 @@ def sample_draws(
   }
 
 
+# --- the kernel's generator, in plain PyTorch -----------------------------------
+
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo32(m: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+  """(high, low) 32-bit words of m * x for 32-bit values held in int64,
+  through 16-bit halves of x so that no product leaves 63 bits."""
+  low = m * (x & 0xFFFF)
+  mid = m * (x >> 16) + (low >> 16)
+  return mid >> 16, ((mid & 0xFFFF) << 16) | (low & 0xFFFF)
+
+
+def philox4x32_10(key: torch.Tensor, counter: torch.Tensor) -> torch.Tensor:
+  """Philox4x32-10 (Salmon et al., SC'11) on integer tensors.
+
+  Args:
+    key: (..., 2) int64 holding 32-bit words.
+    counter: (..., 4) int64 holding 32-bit words, broadcastable with key.
+
+  Returns:
+    (..., 4) int64 holding the four 32-bit output words.
+  """
+  k0, k1 = key[..., 0] & _MASK32, key[..., 1] & _MASK32
+  c0, c1, c2, c3 = (counter[..., j] & _MASK32 for j in range(4))
+  for rnd in range(10):
+    if rnd:
+      k0 = (k0 + _PHILOX_W0) & _MASK32
+      k1 = (k1 + _PHILOX_W1) & _MASK32
+    hi0, lo0 = _mulhilo32(_PHILOX_M0, c0)
+    hi1, lo1 = _mulhilo32(_PHILOX_M1, c2)
+    c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+  return torch.stack(torch.broadcast_tensors(c0, c1, c2, c3), dim=-1)
+
+
+def _uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
+  """(2k + 1) * 2^-24 for the top 23 bits k of a 32-bit word: in (0, 1),
+  exact in f32 (the kernel's `uniform`)."""
+  return ((bits >> 9).to(torch.float32) * (1.0 / 8388608.0)
+          + (1.0 / 16777216.0))
+
+
+def draws_from_seeds(
+    seeds: torch.Tensor, batch: int, height: int, width: int, device
+) -> dict[str, torch.Tensor]:
+  """The draws the kernel derives in Philox mode from per-image `seeds`.
+
+  Key: the low and high words of the seed. Counter (pixel, 0, frame, 0)
+  gives the Box-Muller pair (z_pois the cosine branch, z_gauss the sine
+  branch), u_pois and u_sp; (pixel, 1, frame, 0) gives u_un and u_ex;
+  (row, 2, frame, 0) gives u_row and z_row.
+  """
+  seeds = seeds.to(device=device, dtype=torch.int64).reshape(batch)
+  key = torch.stack([seeds & _MASK32, (seeds >> 32) & _MASK32], dim=-1)
+  frame = torch.arange(batch, device=device, dtype=torch.int64)
+
+  def block(count: int, which: int) -> torch.Tensor:
+    counter = torch.zeros((batch, count, 4), dtype=torch.int64, device=device)
+    counter[..., 0] = torch.arange(count, device=device)
+    counter[..., 1] = which
+    counter[..., 2] = frame[:, None]
+    return philox4x32_10(key[:, None, :], counter)
+
+  def uniforms(words: torch.Tensor, shape) -> list[torch.Tensor]:
+    return [_uniform_from_bits(words[..., j]).reshape(shape)
+            for j in range(4)]
+
+  pixel = (batch, height, width)
+  u1, u2, u_pois, u_sp = uniforms(block(height * width, 0), pixel)
+  z_pois, z_gauss = _box_muller(u1, u2)
+  u_un, u_ex, _, _ = uniforms(block(height * width, 1), pixel)
+  u_row, r1, r2, _ = uniforms(block(height, 2), (batch, height))
+  z_row, _ = _box_muller(r1, r2)
+  return {
+      'u_pois': u_pois, 'z_pois': z_pois, 'u_sp': u_sp, 'u_un': u_un,
+      'u_ex': u_ex, 'z_gauss': z_gauss, 'u_row': u_row, 'z_row': z_row,
+  }
+
+
 def noise_chain_reference(
     image: torch.Tensor,
     packed: torch.Tensor,
@@ -201,17 +289,28 @@ def noise_chain_reference(
 
 def _launch(image, packed, seeds, draws):
   b, h, w = image.shape
-  if h > 12_000:
-    raise ValueError(f'noise_chain: height {h} exceeds the shared-memory '
-                     'row-shift table.')
   lib = _build.load('noise_chain')
+  plan = lib.noise_chain_scratch_floats
+  plan.restype = ctypes.c_longlong
+  plan.argtypes = [ctypes.c_int] * 3
+  # A frame is split by rows over at most 16 blocks, each of which keeps
+  # its rows on chip (12 bytes a pixel, up to ~19,000 pixels); a larger
+  # frame needs 12 bytes a pixel of device scratch instead. The kernel
+  # refuses only a sixteenth of a frame of 2^30 pixels or more, or of more
+  # than 57,000 rows.
+  scratch_floats = plan(b, h, w)
+  if scratch_floats < 0:
+    raise ValueError(
+        f'noise_chain: shape {(b, h, w)} is empty or exceeds the kernel\'s '
+        'limits.')
   fn = lib.noise_chain_launch
   fn.restype = ctypes.c_int
   fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [
       ctypes.c_void_p
   ]
   out = torch.empty_like(image)
-  scratch = torch.empty_like(image)
+  scratch = (torch.empty((scratch_floats,), device=image.device)
+             if scratch_floats else None)
   d = [None] * 8 if draws is None else [
       draws[k] for k in PIXEL_DRAWS + ROW_DRAWS
   ]

@@ -237,3 +237,97 @@ def test_new_wrappers_refuse_bad_inputs(cuda):
     clahe_interp.clahe_interpolate(blocks, luts, wgt.cpu())
   with pytest.raises(ValueError, match='luts'):
     clahe_interp.clahe_interpolate(blocks, luts[:, :8].contiguous(), wgt)
+
+
+@pytest.mark.parametrize('shape', [
+    (4, 256, 256), (2, 512, 512), (3, 200, 328), (2, 50, 37), (1, 96, 96)])
+def test_noise_chain_philox_matches_twin_fed_draws_from_seeds(cuda, shape):
+  b, h, w = shape
+  gen = torch.Generator(device=cuda).manual_seed(10)
+  image = torch.rand(shape, generator=gen, device=cuda) ** 3
+  packed = _packed(b, cuda)
+  seeds = torch.randint(0, 2**62, (b,), generator=gen, device=cuda)
+  before = _build.LAUNCHES['noise_chain']
+  got = noise_fused.noise_chain(image, packed, seeds=seeds)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES['noise_chain'] == before + 1
+  draws = noise_fused.draws_from_seeds(seeds, b, h, w, cuda)
+  want = noise_fused.noise_chain_reference(image, packed, draws=draws)
+  # Same counters, same words, the same libm on both sides: every pixel
+  # equal on the H100 this was written on. At most 1e-5 of the pixels may
+  # differ, which a last-bit difference in a logarithm could cause by
+  # flipping a Poisson count.
+  assert int((got != want).sum()) <= 1e-5 * got.numel()
+  assert bool(torch.isfinite(got).all())
+  assert float(got.min()) >= 0.0 and float(got.max()) <= 1.0
+  # The same seeds give the same frames; the frames do not depend on how
+  # many frames share the launch.
+  again = noise_fused.noise_chain(image, packed, seeds=seeds)
+  assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('shape', [
+    (3, 200, 328), (2, 50, 37), (1, 512, 512), (300, 64, 64), (1, 7, 5),
+    (1, 1024, 1024)])
+def test_noise_chain_injected_at_odd_shapes_and_batches(cuda, shape):
+  """Widths that are no multiple of four, rows that do not divide over a
+  frame's blocks, one frame, more frames than SMs, and a frame too large
+  for shared memory: all bit-equal to the twin."""
+  b, h, w = shape
+  gen = torch.Generator(device=cuda).manual_seed(11)
+  image = torch.rand(shape, generator=gen, device=cuda)
+  packed = _packed(b, cuda)
+  draws = noise_fused.sample_draws(gen, b, h, w, cuda)
+  got = noise_fused.noise_chain(image, packed, draws=draws)
+  want = noise_fused.noise_chain_reference(image, packed, draws=draws)
+  torch.cuda.synchronize()
+  assert float((got - want).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('shape,grid,nbins', [
+    ((16, 240, 360), 6, 256), ((16, 240, 360), 5, 100),
+    ((2, 256, 256), 4, 1024), ((3, 128, 128), 8, 1024),
+    ((2, 256, 256), 16, 1024), ((1, 512, 512), 8, 256),
+    ((100, 512, 512), 8, 256), ((64, 128, 128), 8, 128),
+    ((2, 66, 90), 3, 2), ((2, 64, 64), 1, 256)])
+def test_clahe_remap_is_bit_equal_to_its_twin(cuda, shape, grid, nbins):
+  """Grids other than 8, 1024 bins (the table then takes several passes),
+  tiles of 16 pixels, tiles that are no multiple of 8 (one pixel a thread)
+  and a single image (bands split over blocks)."""
+  image = _skewed(shape, 12, cuda)
+  _, mapping = clahe_fused.clahe_hist_lut(image, grid, 0.01, nbins)
+  before = _build.LAUNCHES['clahe_remap']
+  got = clahe_fused.clahe_remap(image, mapping)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES['clahe_remap'] == before + 1
+  want = clahe_fused.remap_reference(image, mapping)
+  assert float((got - want).abs().max()) == 0.0
+
+
+def test_noise_and_remap_wrappers_refuse_bad_inputs(cuda):
+  image = torch.zeros((2, 64, 64), device=cuda)
+  packed = _packed(2, cuda)
+  seeds = torch.zeros((2,), dtype=torch.int64, device=cuda)
+  with pytest.raises(TypeError, match='image'):
+    noise_fused.noise_chain(image.double(), packed, seeds=seeds)
+  with pytest.raises(ValueError, match='contiguous'):
+    noise_fused.noise_chain(image.transpose(1, 2), packed, seeds=seeds)
+  with pytest.raises(ValueError, match='one device'):
+    noise_fused.noise_chain(image, packed.cpu(), seeds=seeds)
+  with pytest.raises(ValueError, match='seeds'):
+    noise_fused.noise_chain(image, packed, seeds=seeds.cpu())
+  with pytest.raises(TypeError, match='seeds'):
+    noise_fused.noise_chain(image, packed, seeds=seeds.to(torch.int32))
+  with pytest.raises(ValueError, match='needs draws'):
+    noise_fused.noise_chain(image, packed)
+  mapping = torch.zeros((2, 8, 8, 256), device=cuda)
+  with pytest.raises(TypeError, match='image'):
+    clahe_fused.clahe_remap(image.double(), mapping)
+  with pytest.raises(TypeError, match='mapping'):
+    clahe_fused.clahe_remap(image, mapping.double())
+  with pytest.raises(ValueError, match='contiguous'):
+    clahe_fused.clahe_remap(image.transpose(1, 2), mapping)
+  with pytest.raises(ValueError, match='different devices'):
+    clahe_fused.clahe_remap(image, mapping.cpu())
+  with pytest.raises(ValueError, match='nbins'):
+    clahe_fused.clahe_remap(image, torch.zeros((2, 8, 8, 2048), device=cuda))

@@ -212,6 +212,26 @@ def test_clahe_twin_matches_pallas_natural_route():
   assert np.abs(got - want).max() < 4e-3
 
 
+def test_remap_twin_matches_jax_on_a_6_grid_with_128_bins():
+  """Tiles of 40 x 60 pixels (no power of two, so the in-block weights are
+  true divisions that a reciprocal would miss by a bit) and 128 bins,
+  through the split pair's wrappers. Tolerance 1e-5: f32 on both sides,
+  the cdf sums in another order."""
+  rng = np.random.default_rng(46)
+  img = (rng.uniform(size=(2, 240, 360)) ** 2.5).astype(np.float32)
+  want = np.asarray(j_clahe.equalize_adapthist(
+      jnp.asarray(img), grid_size=6, nbins=128, backend='xla'))
+  _, mapping = t_cf.clahe_hist_lut(_t(img), grid_size=6, nbins=128)
+  assert mapping.shape == (2, 6, 6, 128)
+  got = t_cf.clahe_remap(_t(img), mapping).numpy()
+  assert np.abs(got - want).max() <= 1e-5
+  # The weights themselves: (row in block + 0.5) / th, divided, not
+  # multiplied by a rounded 1 / th.
+  ones = torch.ones((1, 6, 6, 128))
+  ramp = t_cf.remap_reference(torch.zeros((1, 240, 360)), ones).numpy()
+  np.testing.assert_allclose(ramp, 1.0, rtol=0, atol=2e-7)
+
+
 def test_clahe_histograms_and_mapping_laws():
   rng = np.random.default_rng(9)
   img = rng.uniform(0, 1, (2, 64, 96)).astype(np.float32)
