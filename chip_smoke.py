@@ -10,9 +10,13 @@ Phases (any failure exits non-zero before the final line):
      against the twin fed `draws_from_seeds` (at most 1e-5 of the pixels may
      differ; 0 is what the card gives) and in distribution;
   4. clahe_hist_lut + clahe_remap against their twins at (100, 512, 512),
-     grid 8: histograms equal, max |d| <= 2e-5;
-  5. each kernel timed (CUDA events, median of 30 launches) beside its
-     twin and its bound;
+     grid 8: histograms equal, max |d| <= 2e-5; the mapping bit-equal (max
+     |d| 0) to `hist_lut_order_exact`, the sums in the kernel's order;
+  5. each kernel timed (CUDA events around one call, median of 30 launches:
+     the wrapper's host time included) beside its twin and its bound; the
+     two kernels redesigned last also by their device time alone (CUPTI,
+     `torch.profiler`, the mean launch over a window of 20 calls whose
+     every launch was recorded, of up to three; else "not measured");
   6. the main path: `ppo_simple_images_tf` on small_eval (100 seeds, 512^2
      render) through the port's eval entry point on CUDA; success >= 0.95,
      average actions within 30.09 +- 6 (the JAX package's eval.json), every
@@ -20,11 +24,14 @@ Phases (any failure exits non-zero before the final line):
   7. `greedy_simple_rates` on tiny_eval reaches the goal every time;
   8. the other CLAHE routes: `clahe_small` against `clahe_reference` at
      (256, 128, 128) and at (64, 128, 128) with 128 bins, and against the
-     split pair at (8, 128, 128); the pair against its twins at
+     split pair at (8, 128, 128) (max |d| 0); the pair against its twins at
      (128, 256, 256), (64, 384, 384) and (64, 128, 128) with 128 bins
-     (histograms equal, max |d| <= 2e-5) and at (16, 240, 360) on a 6 x 6
-     grid; noise_chain with injected draws at (128, 256, 256) and at
-     (3, 200, 328), whose rows do not divide over the blocks of a frame, and
+     (histograms equal, max |d| <= 2e-5; mappings max |d| 0 against
+     `hist_lut_order_exact`), at (16, 240, 360) on a 6 x 6 grid, at
+     (4, 264, 328) (tiles 33 x 41 pixels), at (8, 256, 256) with 100 bins
+     and at (2, 256, 256) on a 4 x 4 grid with 1024 bins; noise_chain with
+     injected draws at (128, 256, 256) and at (3, 200, 328), whose rows do
+     not divide over the blocks of a frame, and
      with Philox draws element-wise at (128, 256, 256); `clahe_small`, the
      pair and noise_chain at (100, 256, 256) timed with bounds;
   9. path A, generator + detector: `sample_batch` at batch 64, noisy, at
@@ -39,7 +46,9 @@ Phases (any failure exits non-zero before the final line):
   11. `splat_render` against its twin and against the default route
       (`_splat_axis_kernels` + `torch.bmm`) on the atom windows of a
       `multi_dopant_3_vision_planner` env at batch 100, at S = 256 and 512
-      (max |d| <= 1e-5), timed beside both and its bound;
+      (max |d| <= 1e-5) and bit-equal (max |d| 0) to
+      `splat_render_atom_order`, also at (1, 77, 200) and with a radius
+      above a block's band of rows; timed beside both and its bound;
   12. `clahe_interp` against its twin on the dual blocks of that env's
       noisy frames at (100, 81, 1024) and (100, 81, 4096) with 256 bins and
       at 128 bins (max |d| <= 1e-6); `equalize_adapthist(backend='interp')`
@@ -122,6 +131,13 @@ TPU_SITES = {
 
 SOURCES = {name: f'putting_dune_torch/csrc/{name}.cu' for name in TPU_SITES}
 
+# The `__global__` functions one wrapper call launches, once each, for the
+# kernels timed by their device time alone.
+KERNEL_NAMES = {
+    'clahe_hist_lut': ('clahe_hist_lut_kernel',),
+    'splat_render': ('splat_render_kernel',),
+}
+
 
 def fail(msg: str) -> None:
   print(f'FAIL: {msg}', flush=True)
@@ -159,16 +175,62 @@ def time_ms(fn, repeats=30, warmup=3) -> float:
   return statistics.median(times)
 
 
-def time_rotating_ms(fn, inputs, repeats=30) -> float:
-  """Median time of fn(x) over `inputs` in turn: buffers that together
-  exceed the 50 MB L2, so each launch finds its frame in device memory."""
+def rotating(fn, inputs):
+  """A call of fn on each of `inputs` in turn."""
   state = {'i': 0}
 
   def call():
     fn(inputs[state['i'] % len(inputs)])
     state['i'] += 1
 
-  return time_ms(call, repeats=repeats, warmup=len(inputs))
+  return call
+
+
+def time_rotating_ms(fn, inputs, repeats=30) -> float:
+  """Median time of fn(x) over `inputs` in turn: buffers that together
+  exceed the 50 MB L2, so each launch finds its frame in device memory."""
+  return time_ms(rotating(fn, inputs), repeats=repeats, warmup=len(inputs))
+
+
+def device_ms(fn, kernels, repeats=20, windows=3):
+  """Device time of one call of fn, which launches each kernel named in
+  `kernels` (part of its name) once: the sum of their mean durations, CUPTI
+  through torch.profiler. The profiler may drop records, so a window of
+  `repeats` calls counts only if it recorded every launch of every kernel;
+  the first such of `windows` windows gives the reading, else None ("not
+  measured")."""
+  import torch
+  from torch.profiler import ProfilerActivity
+  from torch.profiler import profile
+
+  fn()
+  torch.cuda.synchronize()
+  for _ in range(windows):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      for _ in range(repeats):
+        fn()
+      torch.cuda.synchronize()
+    ms = recorded_device_ms(prof.key_averages(), kernels, repeats)
+    if ms is not None:
+      return ms
+  return None
+
+
+def recorded_device_ms(events, kernels, repeats):
+  """Sum over `kernels` of each one's mean device time in ms, from profiler
+  averages (`key`, `count`, `device_time_total` in us); None where a kernel
+  was not recorded exactly `repeats` times."""
+  total_us = 0.0
+  for name in kernels:
+    hits = [e for e in events if name in e.key and e.device_time_total > 0]
+    if sum(e.count for e in hits) != repeats:
+      return None
+    total_us += sum(e.device_time_total for e in hits) / repeats
+  return total_us / 1e3
+
+
+def fmt_ms(ms) -> str:
+  return 'not measured' if ms is None else f'{ms:.4f} ms'
 
 
 def bound(nbytes: float, ops: float, int_ops: float = 0.0
@@ -334,16 +396,20 @@ def main() -> None:
   check(bool(torch.equal(hist, want_hist)), 'clahe histograms differ')
   out = clahe_fused.clahe_remap(philox, mapping)
   want_out = clahe_fused.clahe_reference(philox)
+  _, exact_mapping = clahe_fused.hist_lut_order_exact(philox)
   torch.cuda.synchronize()
   map_err = float((mapping - want_mapping).abs().max())
+  exact_err = float((mapping - exact_mapping).abs().max())
   clahe_err = float((out - want_out).abs().max())
   remap_err = float((out - clahe_fused.remap_reference(philox, mapping))
                     .abs().max())
-  print(f'clahe: histograms equal, mapping max|d| = {map_err:.3g}, '
-        f'output max|d| = {clahe_err:.3g} (remap alone {remap_err:.3g})',
-        flush=True)
+  print(f'clahe: histograms equal, mapping max|d| = {map_err:.3g} '
+        f'(against the order-exact version {exact_err:.3g}), output max|d| '
+        f'= {clahe_err:.3g} (remap alone {remap_err:.3g})', flush=True)
   check(clahe_err <= 2e-5 and map_err <= 2e-5, 'clahe disagrees with twin')
-  del want_out, want_hist, want_mapping
+  check(exact_err == 0.0,
+        'clahe_hist_lut mapping differs from the order-exact version')
+  del want_out, want_hist, want_mapping, exact_mapping
 
   # -- 5. timing -----------------------------------------------------------
   rows = {}
@@ -361,6 +427,11 @@ def main() -> None:
                          nb_512['bound_ms'], nb_512['bound_by'],
                          SOURCES['noise_chain'])
   t_hist = time_ms(lambda: clahe_fused.clahe_hist_lut(philox))
+  # Device time alone, for the kernels whose per-call time is mostly the
+  # wrapper's host time.
+  device = {'clahe_hist_lut': device_ms(
+      lambda: clahe_fused.clahe_hist_lut(philox),
+      KERNEL_NAMES['clahe_hist_lut'])}
   t_hist_plain = time_ms(lambda: clahe_fused.hist_lut_reference(philox),
                          repeats=20)
   rows['clahe_hist_lut'] = (t_hist, t_hist_plain, map_err,
@@ -447,19 +518,24 @@ def main() -> None:
     out = clahe_fused.clahe_remap(x, mapping_p)
     want_hist, want_mapping = clahe_fused.hist_lut_reference(
         x, grid, nbins=nbins)
+    _, exact = clahe_fused.hist_lut_order_exact(x, grid, nbins=nbins)
     want = clahe_fused.clahe_reference(x, grid_size=grid, nbins=nbins)
     torch.cuda.synchronize()
     errs = (float((mapping_p - want_mapping).abs().max()),
             float((out - clahe_fused.remap_reference(x, mapping_p))
                   .abs().max()),
             float((out - want).abs().max()))
+    exact_err = float((mapping_p - exact).abs().max())
     print(f'clahe pair {shape} nbins {nbins} grid {grid}: histograms '
           f'{"equal" if torch.equal(hist_p, want_hist) else "DIFFER"}, '
-          f'mapping max|d| = {errs[0]:.3g}, remap max|d| = {errs[1]:.3g}, '
-          f'output max|d| = {errs[2]:.3g}', flush=True)
+          f'mapping max|d| = {errs[0]:.3g} (against the order-exact version '
+          f'{exact_err:.3g}), remap max|d| = {errs[1]:.3g}, output max|d| = '
+          f'{errs[2]:.3g}', flush=True)
     check(bool(torch.equal(hist_p, want_hist)),
           f'clahe_hist_lut histograms differ at {shape}')
     check(max(errs) <= 2e-5, f'clahe pair disagrees with twins at {shape}')
+    check(exact_err == 0.0, f'clahe_hist_lut mapping differs from the '
+          f'order-exact version at {shape}, {nbins} bins, grid {grid}')
     return x, mapping_p, errs
 
   x_small, small_err = hold_small((256, 128, 128), 256)
@@ -470,12 +546,15 @@ def main() -> None:
   route_err = float((s_out - clahe_fused.clahe_remap(x8, p_map)).abs().max())
   print(f'clahe_small vs split pair (8, 128, 128): max|d| = {route_err:.3g}',
         flush=True)
-  check(bool(torch.equal(s_hist, p_hist)) and route_err <= 2e-5,
+  check(bool(torch.equal(s_hist, p_hist)) and route_err == 0.0,
         'clahe_small and the split pair differ')
   x_mid, map_mid, mid_errs = hold_pair((128, 256, 256), 256)
   hold_pair((64, 384, 384), 256)
   x_v128, map_v128, v128_errs = hold_pair((64, 128, 128), 128)
   hold_pair((16, 240, 360), 256, grid=6)
+  hold_pair((4, 264, 328), 256)  # tiles 33 x 41: one float a lane
+  hold_pair((8, 256, 256), 100)
+  hold_pair((2, 256, 256), 1024, grid=4)
 
   nb, nh, nw = 128, 256, 256
   params_mid = imaging_params.sample_imaging_params(gen, nb, device=dev,
@@ -555,6 +634,8 @@ def main() -> None:
   mid_inputs = [x_mid] + [frames((128, 256, 256)) for _ in range(3)]
   n_mid = x_mid.numel()
   t_hist_mid = time_rotating_ms(clahe_fused.clahe_hist_lut, mid_inputs)
+  d_hist_mid = device_ms(rotating(clahe_fused.clahe_hist_lut, mid_inputs),
+                         KERNEL_NAMES['clahe_hist_lut'])
   t_remap_mid = time_rotating_ms(
       lambda x: clahe_fused.clahe_remap(x, map_mid), mid_inputs)
   t_pair_mid = time_rotating_ms(pair, mid_inputs)
@@ -571,6 +652,7 @@ def main() -> None:
         'shape': [128, 256, 256], 'ms': ms,
         'plain_ms': time_ms(plain_fn, repeats=20), 'bound_ms': bound_ms,
         'bound_by': bound_by, 'max_abs_err': err})
+  other_shapes['clahe_hist_lut'][-1]['device_ms'] = d_hist_mid
   # The any-`nbins` histogram branch at 128 bins (4 MB of frames: they stay
   # in L2 whatever the rotation).
   v128_inputs = [x_v128] + [frames((64, 128, 128)) for _ in range(3)]
@@ -588,10 +670,10 @@ def main() -> None:
       'max_abs_err': v128_errs[0]})
   del v128_inputs, x_v128, map_v128
   pair_bound, _ = bound(8.0 * n_mid, 0)
-  print(f'clahe pair (128, 256, 256): hist_lut {t_hist_mid:.4f} + remap '
-        f'{t_remap_mid:.4f} ms, both in turn {t_pair_mid:.4f} ms (bound of '
-        f'the whole, frame read once and written once: {pair_bound:.4f} ms)',
-        flush=True)
+  print(f'clahe pair (128, 256, 256): hist_lut {t_hist_mid:.4f} ms (device '
+        f'{fmt_ms(d_hist_mid)}) + remap {t_remap_mid:.4f} ms, both in turn '
+        f'{t_pair_mid:.4f} ms (bound of the whole, frame read once and '
+        f'written once: {pair_bound:.4f} ms)', flush=True)
   del mid_inputs, x_mid, map_mid, x_small
   torch.cuda.empty_cache()
 
@@ -727,18 +809,23 @@ def main() -> None:
     got = splat_lib.splat_render(*operands, image_size=size)
     want = splat_lib.splat_render_reference(*operands, image_size=size)
     route = default_splat(*operands, size)
+    exact = splat_lib.splat_render_atom_order(*operands, image_size=size)
     torch.cuda.synchronize()
     err_twin = float((got - want).abs().max())
     err_route = float((got - route).abs().max())
+    err_exact = float((got - exact).abs().max())
     real = int((wts > 0).sum())
     print(f'splat_render (100, 512, {size}): {real} real atoms, max|d| vs twin '
-          f'= {err_twin:.3g}, vs the default route = {err_route:.3g}',
-          flush=True)
+          f'= {err_twin:.3g}, vs the default route = {err_route:.3g}, vs the '
+          f'atom-order version = {err_exact:.3g}', flush=True)
     check(bool(torch.isfinite(got).all()) and float(got.amax()) == 1.0,
           'splat_render frames are not max-normalized')
     check(err_twin <= 1e-5, f'splat_render disagrees with its twin at {size}')
     check(err_route <= 1e-5,
           f'splat_render disagrees with the default route at {size}')
+    check(err_exact == 0.0,
+          f'splat_render differs from the atom-order version at {size}')
+    del exact
     del want, route
     # Work this run's data needs: two operations per (real atom, pixel of
     # its truncated support); the dense contraction is given beside it.
@@ -750,23 +837,43 @@ def main() -> None:
     bound_ms, bound_by = bound(nbytes, sparse_ops)
     t_kernel = time_ms(lambda: splat_lib.splat_render(
         *operands, image_size=size))
+    d_kernel = device_ms(lambda: splat_lib.splat_render(
+        *operands, image_size=size), KERNEL_NAMES['splat_render'])
     t_twin = time_ms(lambda: splat_lib.splat_render_reference(
         *operands, image_size=size), repeats=10)
     t_route = time_ms(lambda: default_splat(*operands, size), repeats=10)
-    print(f'splat_render (100, 512, {size}): {t_kernel:.4f} ms, twin '
-          f'{t_twin:.4f} ms, default route {t_route:.4f} ms, bound '
-          f'{bound_ms:.4f} ms ({bound_by}); dense contraction '
-          f'{dense_ops / F32_OPS_PER_S * 1e3:.4f} ms', flush=True)
+    print(f'splat_render (100, 512, {size}): {t_kernel:.4f} ms (device '
+          f'{fmt_ms(d_kernel)}), twin {t_twin:.4f} ms, default route '
+          f'{t_route:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); dense '
+          f'contraction {dense_ops / F32_OPS_PER_S * 1e3:.4f} ms', flush=True)
     splat_rows[size] = {
-        'shape': [100, 512, size], 'ms': t_kernel, 'plain_ms': t_twin,
-        'bound_ms': bound_ms, 'bound_by': bound_by, 'max_abs_err': err_twin,
+        'shape': [100, 512, size], 'ms': t_kernel, 'device_ms': d_kernel,
+        'plain_ms': t_twin, 'bound_ms': bound_ms, 'bound_by': bound_by,
+        'max_abs_err': err_twin, 'atom_order_max_abs_err': err_exact,
         'library_ms': t_route,
         'dense_contraction_ms': dense_ops / F32_OPS_PER_S * 1e3}
     clean_md[size] = got
+  # Small shapes, bit-equal to the atom-order version: one frame of 77
+  # atoms (not a multiple of 32) at S = 200, and widths whose radius (~38
+  # rows) is above a block's band of 8 rows at S = 128.
+  for b_s, k_s, s_s, scale in ((1, 77, 200, 1.0), (4, 64, 128, 8.0)):
+    small_ops = [t[:b_s, :k_s].contiguous() for t in operands[:3]] + [
+        (t[:b_s] * (s_s / size) * scale).contiguous() for t in operands[3:]]
+    small_ops[:2] = [torch.clamp(t * (s_s / size), max=s_s - 1).floor()
+                     for t in small_ops[:2]]
+    got_s = splat_lib.splat_render(*small_ops, image_size=s_s)
+    err_s = float((got_s - splat_lib.splat_render_atom_order(
+        *small_ops, image_size=s_s)).abs().max())
+    radius = float(torch.floor(4 * small_ops[4] + 0.5).max())
+    print(f'splat_render ({b_s}, {k_s}, {s_s}), radius up to {radius:.0f} '
+          f'rows: max|d| vs the atom-order version = {err_s:.3g}', flush=True)
+    check(err_s == 0.0, f'splat_render differs from the atom-order version '
+          f'at {(b_s, k_s, s_s)}')
   row = splat_rows[256]
   rows['splat_render'] = (row['ms'], row['plain_ms'], row['max_abs_err'],
                           row['bound_ms'], row['bound_by'],
                           SOURCES['splat_render'])
+  device['splat_render'] = row['device_ms']
   shapes['splat_render'] = (100, 512, 256)
   # No single PyTorch call computes the splat; its yardstick is the default
   # route (two (B, K, S) exp passes and `torch.bmm`), what a caller who does
@@ -897,13 +1004,17 @@ def main() -> None:
     by_path = {path: counts[name] for path, counts in path_launches.items()}
     total = sum(by_path.values())
     check(total > 0, f'{name} was launched on no main path')
-    print(f'{name}: {ms:.4f} ms (bound {bound_ms:.4f} ms, {bound_by}), '
-          f'plain twin {plain_ms:.4f} ms, launches {by_path}, at '
+    dev_note = f', device {fmt_ms(device[name])}' if name in device else ''
+    print(f'{name}: {ms:.4f} ms{dev_note} (bound {bound_ms:.4f} ms, '
+          f'{bound_by}), plain twin {plain_ms:.4f} ms, launches {by_path}, at '
           f'{shapes[name]} on {smi}', flush=True)
     for extra in other_shapes[name]:
-      print(f"{name}: {extra['ms']:.4f} ms (bound {extra['bound_ms']:.4f} "
-            f"ms, {extra['bound_by']}), plain twin {extra['plain_ms']:.4f} "
-            f"ms, at {tuple(extra['shape'])} on {smi}", flush=True)
+      extra_dev = (f", device {fmt_ms(extra['device_ms'])}"
+                   if 'device_ms' in extra else '')
+      print(f"{name}: {extra['ms']:.4f} ms{extra_dev} (bound "
+            f"{extra['bound_ms']:.4f} ms, {extra['bound_by']}), plain twin "
+            f"{extra['plain_ms']:.4f} ms, at {tuple(extra['shape'])} on {smi}",
+            flush=True)
     kernels.append({
         'name': name, 'route': 'cuda', 'source': source,
         'replaces': TPU_SITES[name], 'launches': total,
@@ -913,6 +1024,8 @@ def main() -> None:
         'shape': list(shapes[name]), 'launches_by_path': by_path,
         'other_shapes': other_shapes[name],
     })
+    if name in device:
+      kernels[-1]['device_ms'] = device[name]
     if name == 'noise_chain':
       kernels[-1].update(
           bytes_bound_ms=nb_512['bytes_bound_ms'],

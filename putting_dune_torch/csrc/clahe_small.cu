@@ -21,22 +21,23 @@
 // blocks, a nibble matmul for the histograms, a triangular matmul for the
 // cumsum and 128-lane segment gathers, all workarounds for a chip without
 // scatter or gather. Here phase 1 is shared-memory atomics over the frame
-// as it lies in memory, phase 2 gives each warp whole tiles (the same
-// butterfly excess sum and Hillis-Steele scan as clahe_hist_lut, sum for
-// sum, so both routes give identical mappings), and phase 3 gathers from
-// shared memory. Simple first: 512 threads, one image per block, so a
-// batch of B images fills the card only from B >= 132.
+// as it lies in memory, phase 2 gives each warp whole tiles and runs
+// clahe::tile_mapping (csrc/clahe_lut.cuh, shared with clahe_hist_lut, so
+// both routes give identical mappings), and phase 3 gathers from shared
+// memory. Simple first: 512 threads, one image per block, so a batch of B
+// images fills the card only from B >= 132.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "clahe_lut.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-// The virtual block width of clahe_hist_lut's excess reduction.
-constexpr int kHistThreads = 256;
 
+template <int NB>
 __global__ void __launch_bounds__(kThreads)
 clahe_small_kernel(const float* __restrict__ image, float* __restrict__ out,
                    int* __restrict__ hist_out, int height, int width, int grid,
@@ -45,8 +46,6 @@ clahe_small_kernel(const float* __restrict__ image, float* __restrict__ out,
   const int tiles = grid * grid;
   int* hist = smem;                                  // [tiles][nbins]
   float* maps = reinterpret_cast<float*>(smem);      // same storage, phase 2+
-  float* scratch =
-      reinterpret_cast<float*>(smem + tiles * nbins);  // [kWarps][nbins]
 
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
@@ -69,49 +68,26 @@ clahe_small_kernel(const float* __restrict__ image, float* __restrict__ out,
   if (hist_out != nullptr) {
     int* dst = hist_out + (size_t)b * tiles * nbins;
     for (int i = t; i < tiles * nbins; i += kThreads) dst[i] = hist[i];
+    // Phase 2 writes the mappings over the counts copied here.
+    __syncthreads();
   }
 
   // ---- phase 2: clip, spread, scan, normalize; one warp per tile ----------
-  float* buf = scratch + warp * nbins;
+  // Each lane reads its own counts into registers and writes its own
+  // mapping entries back over them.
   for (int tile = warp; tile < tiles; tile += kWarps) {
-    int* h = hist + tile * nbins;
-    float* home = maps + tile * nbins;
-
-    // Excess, summed in clahe_hist_lut's order: thread u of its 256 holds
-    // bins u, u + 256, ...; butterfly within each warp; warps in sequence.
-    float total_excess = 0.0f;
-    for (int vw = 0; vw < kHistThreads / 32; ++vw) {
-      float e = 0.0f;
-      for (int v = vw * 32 + lane; v < nbins; v += kHistThreads)
-        e += fmaxf((float)h[v] - clim, 0.0f);
+    float x[NB];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        e += __shfl_xor_sync(0xffffffffu, e, off);
-      total_excess += e;
+    for (int j = 0; j < NB; ++j) {
+      const int v = lane + 32 * j;
+      x[j] = v < nbins ? (float)hist[tile * nbins + v] : 0.0f;
     }
-    const float spread = total_excess / fbins;
-
-    // Each lane converts its own entries in place (int count -> float).
-    for (int v = lane; v < nbins; v += 32)
-      home[v] = fminf((float)h[v], clim) + spread;
-    __syncwarp();
-
-    // Inclusive Hillis-Steele scan, ping-pong between the tile's own
-    // storage and this warp's scratch row.
-    float* cur = home;
-    float* nxt = buf;
-    for (int off = 1; off < nbins; off <<= 1) {
-      for (int v = lane; v < nbins; v += 32)
-        nxt[v] = v >= off ? cur[v - off] + cur[v] : cur[v];
-      float* tmp = cur;
-      cur = nxt;
-      nxt = tmp;
-      __syncwarp();
+    clahe::tile_mapping<NB>(x, nbins, clim, lane);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int v = lane + 32 * j;
+      if (v < nbins) maps[tile * nbins + v] = x[j];
     }
-    const float total = cur[nbins - 1];
-    __syncwarp();
-    for (int v = lane; v < nbins; v += 32) home[v] = cur[v] / total;
-    __syncwarp();
   }
   __syncthreads();
 
@@ -140,11 +116,24 @@ clahe_small_kernel(const float* __restrict__ image, float* __restrict__ out,
   }
 }
 
+template <int NB>
+cudaError_t launch(const float* image, float* out, int* hist, int batch,
+                   int height, int width, int grid, int nbins, float clim,
+                   int shared, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      clahe_small_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      shared);
+  if (err != cudaSuccess) return err;
+  clahe_small_kernel<NB><<<batch, kThreads, shared, stream>>>(
+      image, out, hist, height, width, grid, nbins, clim);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Dynamic shared memory the kernel needs, in bytes.
 extern "C" int clahe_small_shared_bytes(int grid, int nbins) {
-  return (grid * grid + kWarps) * nbins * (int)sizeof(int);
+  return grid * grid * nbins * (int)sizeof(int);
 }
 
 // Returns cudaGetLastError() after the launch (0 on success), or the
@@ -154,10 +143,16 @@ extern "C" int clahe_small_launch(const float* image, float* out, int* hist,
                                   int batch, int height, int width, int grid,
                                   int nbins, float clim, void* stream) {
   const int shared = clahe_small_shared_bytes(grid, nbins);
-  cudaError_t err = cudaFuncSetAttribute(
-      clahe_small_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
-  if (err != cudaSuccess) return (int)err;
-  clahe_small_kernel<<<batch, kThreads, shared, (cudaStream_t)stream>>>(
-      image, out, hist, height, width, grid, nbins, clim);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (nbins <= 128)
+    return (int)launch<4>(image, out, hist, batch, height, width, grid, nbins,
+                          clim, shared, s);
+  if (nbins <= 256)
+    return (int)launch<8>(image, out, hist, batch, height, width, grid, nbins,
+                          clim, shared, s);
+  if (nbins <= 512)
+    return (int)launch<16>(image, out, hist, batch, height, width, grid,
+                           nbins, clim, shared, s);
+  return (int)launch<32>(image, out, hist, batch, height, width, grid, nbins,
+                         clim, shared, s);
 }

@@ -2,9 +2,11 @@
 
 Each `csrc/<name>.cu` exposes a plain C function (no PyTorch headers), so
 nvcc builds it in seconds. Libraries go to `putting_dune_torch/_build/`
-(git-ignored), named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused. `build_all` starts one
-nvcc per source, all at once. Nothing here runs at import time.
+(git-ignored), named by a hash of the source, of every `csrc/*.cuh` header
+it includes (`#include "name.cuh"`, followed through headers) and of the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused. `build_all` starts one nvcc per source, all at once. Nothing here
+runs at import time.
 
 Every wrapper also counts its launches in `LAUNCHES` (one per kernel
 launch, nowhere else), so a run can show that its main path went through
@@ -17,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -43,6 +46,7 @@ KERNELS = ('noise_chain', 'clahe_hist_lut', 'clahe_remap', 'clahe_small',
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _libs: dict[str, ctypes.CDLL] = {}
+_functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 
 
@@ -66,10 +70,26 @@ def nvcc_path() -> str:
   return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list[pathlib.Path]:
+  """The source of `name` and every csrc header it includes, in order."""
+  found = [SRC_DIR / f'{name}.cu']
+  for path in found:
+    for header in _INCLUDE.findall(path.read_bytes()):
+      include = SRC_DIR / header.decode()
+      if include not in found:
+        found.append(include)
+  return found
+
+
 def library_path(name: str) -> pathlib.Path:
-  source = (SRC_DIR / f'{name}.cu').read_bytes()
-  digest = hashlib.sha256(source + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-  return BUILD_DIR / f'{name}-{digest[:16]}.so'
+  digest = hashlib.sha256()
+  for path in _sources(name):
+    digest.update(path.name.encode() + b'\0' + path.read_bytes())
+  digest.update(' '.join(NVCC_FLAGS).encode())
+  return BUILD_DIR / f'{name}-{digest.hexdigest()[:16]}.so'
 
 
 def build_all(names=KERNELS, *, verbose: bool = False) -> dict[str, str]:
@@ -118,6 +138,18 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+  """`symbol` of the library `name`, its ctypes signature set once (a
+  wrapper's call then pays no ctypes set-up)."""
+  fn = _functions.get((name, symbol))
+  if fn is None:
+    fn = getattr(load(name), symbol)
+    fn.restype = restype
+    fn.argtypes = argtypes
+    _functions[(name, symbol)] = fn
+  return fn
+
+
 def check_status(name: str, status: int) -> None:
   if status != 0:
     raise RuntimeError(
@@ -125,12 +157,18 @@ def check_status(name: str, status: int) -> None:
     )
 
 
-def ptr(tensor) -> ctypes.c_void_p:
-  return ctypes.c_void_p(0 if tensor is None else tensor.data_ptr())
+def ptr(tensor) -> int | None:
+  """A tensor's address for a `ctypes.c_void_p` argument (None: NULL)."""
+  return None if tensor is None else tensor.data_ptr()
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
-  return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream_ptr(device) -> int:
+  """The current CUDA stream of `device`, as a raw handle. (The public
+  `torch.cuda.current_stream(device).cuda_stream` builds a Stream object
+  on every call, host time each kernel call would pay.)"""
+  index = device.index if device.index is not None else (
+      torch.cuda.current_device())
+  return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check_tensor(tensor, name: str, dtype, ndim: int) -> None:

@@ -21,6 +21,9 @@ Which route a frame takes is decided by its shape alone
 (imaging/clahe.py). On CPU tensors each wrapper runs its twin
 (`hist_lut_reference`, `remap_reference`, `clahe_reference`): histograms
 by bincount and LUT reads by gather, never a (pixels x bins) one-hot.
+`hist_lut_order_exact` takes every sum of the mapping in the kernels'
+order (csrc/clahe_lut.cuh): the oracle the kernels' mappings are held to
+bit for bit, on the card and in the tests.
 """
 
 from __future__ import annotations
@@ -62,13 +65,9 @@ def _check_image(image: torch.Tensor, grid_size: int) -> None:
 # --- plain twins ----------------------------------------------------------------
 
 
-def hist_lut_reference(
-    image: torch.Tensor, grid_size: int = 8, clip_limit: float = 0.01,
-    nbins: int = NBINS,
-) -> tuple[torch.Tensor, torch.Tensor]:
-  """(hist int32, mapping f32), each (B, g, g, nbins)."""
+def _tile_histograms(image: torch.Tensor, g: int, nbins: int) -> torch.Tensor:
+  """(B, g, g, nbins) int32 counts of each tile's bins."""
   b, h, w = image.shape
-  g = grid_size
   th, tw = h // g, w // g
   bins = _bins(image, nbins)
   tile_y = torch.arange(h, device=image.device) // th
@@ -79,14 +78,64 @@ def hist_lut_reference(
       * nbins + bins
   )
   hist = torch.bincount(flat.reshape(-1), minlength=b * g * g * nbins)
-  hist = hist.reshape(b, g, g, nbins).to(torch.int32)
+  return hist.reshape(b, g, g, nbins).to(torch.int32)
 
-  clim = clip_limit_count(clip_limit, th * tw)
+
+def hist_lut_reference(
+    image: torch.Tensor, grid_size: int = 8, clip_limit: float = 0.01,
+    nbins: int = NBINS,
+) -> tuple[torch.Tensor, torch.Tensor]:
+  """(hist int32, mapping f32), each (B, g, g, nbins)."""
+  _, h, w = image.shape
+  g = grid_size
+  hist = _tile_histograms(image, g, nbins)
+  clim = clip_limit_count(clip_limit, (h // g) * (w // g))
   hf = hist.to(torch.float32)
   excess = torch.sum(torch.clamp(hf - clim, min=0.0), dim=-1, keepdim=True)
   hf = torch.clamp(hf, max=clim) + excess / nbins
   cdf = torch.cumsum(hf, dim=-1)
   return hist, cdf / cdf[..., -1:]
+
+
+def hist_lut_order_exact(
+    image: torch.Tensor, grid_size: int = 8, clip_limit: float = 0.01,
+    nbins: int = NBINS,
+) -> tuple[torch.Tensor, torch.Tensor]:
+  """`hist_lut_reference` with the mapping's sums in the kernels' order.
+
+  The excess: thread u of a 256-thread block adds bins u, u + 256, ... in
+  turn; a xor butterfly over each group of 32 threads; the eight group
+  totals added in sequence. The cumsum: an inclusive Hillis-Steele scan.
+  Divisions by tensors (PyTorch multiplies by the reciprocal of a Python
+  number on CUDA).
+  """
+  _, h, w = image.shape
+  g = grid_size
+  dev = image.device
+  hist = _tile_histograms(image, g, nbins)
+  clim = clip_limit_count(clip_limit, (h // g) * (w // g))
+  hf = hist.to(torch.float32)
+  rounds = -(-nbins // 256)
+  # Bins past nbins add +0 to a non-negative partial: no change.
+  ex = torch.nn.functional.pad(torch.clamp(hf - clim, min=0.0),
+                               (0, 256 * rounds - nbins))
+  ex = ex.reshape(*hf.shape[:-1], rounds, 256)
+  e = ex[..., 0, :]
+  for i in range(1, rounds):
+    e = e + ex[..., i, :]
+  lanes = torch.arange(256, device=dev)
+  for off in (16, 8, 4, 2, 1):
+    e = e + e[..., lanes ^ off]
+  total = torch.zeros(hf.shape[:-1], device=dev)
+  for group in range(8):
+    total = total + e[..., 32 * group]
+  spread = total / torch.full((), float(nbins), device=dev)
+  cur = torch.clamp(hf, max=clim) + spread[..., None]
+  off = 1
+  while off < nbins:
+    cur = torch.cat([cur[..., :off], cur[..., off:] + cur[..., :-off]], dim=-1)
+    off *= 2
+  return hist, cur / cur[..., -1:]
 
 
 def remap_reference(image: torch.Tensor, mapping: torch.Tensor) -> torch.Tensor:
@@ -159,11 +208,10 @@ def clahe_hist_lut(
   g = grid_size
   hist = torch.empty((b, g, g, nbins), dtype=torch.int32, device=image.device)
   mapping = torch.empty((b, g, g, nbins), device=image.device)
-  fn = _build.load('clahe_hist_lut').clahe_hist_lut_launch
-  fn.restype = ctypes.c_int
-  fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-      ctypes.c_float, ctypes.c_void_p
-  ]
+  fn = _build.function(
+      'clahe_hist_lut', 'clahe_hist_lut_launch',
+      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+      + [ctypes.c_float, ctypes.c_void_p])
   status = fn(
       _build.ptr(image), _build.ptr(hist), _build.ptr(mapping), b, h, w, g,
       nbins, clip_limit_count(clip_limit, (h // g) * (w // g)),
@@ -188,9 +236,9 @@ def clahe_remap(image: torch.Tensor, mapping: torch.Tensor) -> torch.Tensor:
     raise ValueError('clahe_remap: image and mapping on different devices.')
   _, h, w = image.shape
   out = torch.empty_like(image)
-  fn = _build.load('clahe_remap').clahe_remap_launch
-  fn.restype = ctypes.c_int
-  fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+  fn = _build.function('clahe_remap', 'clahe_remap_launch',
+                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
   status = fn(
       _build.ptr(image), _build.ptr(mapping), _build.ptr(out), b, h, w, g,
       mapping.shape[-1], _build.stream_ptr(image.device),
@@ -222,10 +270,8 @@ def clahe_small(
     out = remap_reference(image, mapping)
     return (out, hist) if return_hist else out
   _cuda_only('clahe_small', image, nbins)
-  lib = _build.load('clahe_small')
-  lib.clahe_small_shared_bytes.restype = ctypes.c_int
-  lib.clahe_small_shared_bytes.argtypes = [ctypes.c_int] * 2
-  shared = lib.clahe_small_shared_bytes(g, nbins)
+  shared = _build.function('clahe_small', 'clahe_small_shared_bytes',
+                           [ctypes.c_int] * 2)(g, nbins)
   if shared > MAX_SHARED_BYTES:
     raise ValueError(
         f'clahe_small: grid {g} x {nbins} bins needs {shared} bytes of '
@@ -233,11 +279,10 @@ def clahe_small(
   out = torch.empty_like(image)
   hist = (torch.empty((b, g, g, nbins), dtype=torch.int32,
                       device=image.device) if return_hist else None)
-  fn = lib.clahe_small_launch
-  fn.restype = ctypes.c_int
-  fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-      ctypes.c_float, ctypes.c_void_p
-  ]
+  fn = _build.function(
+      'clahe_small', 'clahe_small_launch',
+      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+      + [ctypes.c_float, ctypes.c_void_p])
   status = fn(
       _build.ptr(image), _build.ptr(out), _build.ptr(hist), b, h, w, g,
       nbins, clip_limit_count(clip_limit, npx),

@@ -76,9 +76,9 @@ def clahe_interpolate(
     raise ValueError(
         'clahe_interpolate: luts and weights must be 16-byte aligned.')
   out = torch.empty((b, k, p), dtype=torch.float32, device=blocks.device)
-  fn = _build.load('clahe_interp').clahe_interp_launch
-  fn.restype = ctypes.c_int
-  fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+  fn = _build.function('clahe_interp', 'clahe_interp_launch',
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
   status = fn(
       _build.ptr(blocks), _build.ptr(luts), _build.ptr(weights),
       _build.ptr(out), b * k, p, v, _build.stream_ptr(blocks.device),

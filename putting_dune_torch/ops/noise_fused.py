@@ -289,10 +289,8 @@ def noise_chain_reference(
 
 def _launch(image, packed, seeds, draws):
   b, h, w = image.shape
-  lib = _build.load('noise_chain')
-  plan = lib.noise_chain_scratch_floats
-  plan.restype = ctypes.c_longlong
-  plan.argtypes = [ctypes.c_int] * 3
+  plan = _build.function('noise_chain', 'noise_chain_scratch_floats',
+                         [ctypes.c_int] * 3, restype=ctypes.c_longlong)
   # A frame is split by rows over at most 16 blocks, each of which keeps
   # its rows on chip (12 bytes a pixel, up to ~19,000 pixels); a larger
   # frame needs 12 bytes a pixel of device scratch instead. The kernel
@@ -303,11 +301,9 @@ def _launch(image, packed, seeds, draws):
     raise ValueError(
         f'noise_chain: shape {(b, h, w)} is empty or exceeds the kernel\'s '
         'limits.')
-  fn = lib.noise_chain_launch
-  fn.restype = ctypes.c_int
-  fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [
-      ctypes.c_void_p
-  ]
+  fn = _build.function('noise_chain', 'noise_chain_launch',
+                       [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
   out = torch.empty_like(image)
   scratch = (torch.empty((scratch_floats,), device=image.device)
              if scratch_floats else None)

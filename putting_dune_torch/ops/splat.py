@@ -11,7 +11,9 @@ row is a shifted copy of one truncated Gaussian profile of length 2S:
 
 with the y bins flipped at bin level (byf = S-1-by: row 0 is the image
 top). `splat_render` launches csrc/splat_render.cu on CUDA tensors and
-runs `splat_render_reference` on CPU tensors.
+runs `splat_render_reference` on CPU tensors. `splat_render_atom_order`
+sums the atoms one by one, as the kernel does: the oracle its frames are
+held to bit for bit, on the card and in the tests.
 
 Numerics: the factors stay float32 and the sum is accumulated in float32.
 The TPU kernel casts its factors to bfloat16 for the matrix unit; that
@@ -67,6 +69,26 @@ def splat_render_reference(
   return image / torch.clamp(peak, min=1e-20)
 
 
+def splat_render_atom_order(
+    bx: torch.Tensor, by: torch.Tensor, weights: torch.Tensor,
+    sigma_x: torch.Tensor, sigma_y: torch.Tensor, *, image_size: int,
+) -> torch.Tensor:
+  """The frame as `acc = acc + (w_k * gy_k) * gx_k`, atom by atom, then the
+  peak and the divide: the kernel's expression in the kernel's order
+  (atoms that miss a pixel add +0, which changes no bit)."""
+  s = image_size
+  ix = torch.clamp(bx.to(torch.int64), 0, s - 1)
+  iyf = (s - 1) - torch.clamp(by.to(torch.int64), 0, s - 1)
+  gx = _shifted_rows(_profile(sigma_x, s), ix, s)  # (B, K, S)
+  gy = _shifted_rows(_profile(sigma_y, s), iyf, s)
+  acc = torch.zeros((bx.shape[0], s, s), device=bx.device)
+  for k in range(bx.shape[1]):
+    wy = weights[:, k, None] * gy[:, k]  # (B, S_y)
+    acc = acc + wy[:, :, None] * gx[:, k, None, :]
+  peak = torch.amax(acc, dim=(-2, -1), keepdim=True)
+  return acc / torch.clamp(peak, min=1e-20)
+
+
 def splat_render(
     bx: torch.Tensor, by: torch.Tensor, weights: torch.Tensor,
     sigma_x: torch.Tensor, sigma_y: torch.Tensor, *, image_size: int,
@@ -103,14 +125,13 @@ def splat_render(
   if not 1 <= b <= MAX_BATCH:
     raise ValueError(f'splat_render: batch must be in [1, {MAX_BATCH}].')
   out = torch.empty((b, s, s), dtype=torch.float32, device=bx.device)
-  peak_bits = torch.zeros((b,), dtype=torch.int32, device=bx.device)
-  fn = _build.load('splat_render').splat_render_launch
-  fn.restype = ctypes.c_int
-  fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+  fn = _build.function('splat_render', 'splat_render_launch',
+                       [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
   status = fn(
       _build.ptr(bx), _build.ptr(by), _build.ptr(weights),
-      _build.ptr(sigma_x), _build.ptr(sigma_y), _build.ptr(out),
-      _build.ptr(peak_bits), b, k, s, _build.stream_ptr(bx.device),
+      _build.ptr(sigma_x), _build.ptr(sigma_y), _build.ptr(out), b, k, s,
+      _build.stream_ptr(bx.device),
   )
   _build.check_status('splat_render', status)
   _build.count_launch('splat_render')

@@ -331,3 +331,66 @@ def test_noise_and_remap_wrappers_refuse_bad_inputs(cuda):
     clahe_fused.clahe_remap(image, mapping.cpu())
   with pytest.raises(ValueError, match='nbins'):
     clahe_fused.clahe_remap(image, torch.zeros((2, 8, 8, 2048), device=cuda))
+
+
+@pytest.mark.parametrize('shape,grid,nbins', [
+    ((100, 512, 512), 8, 256), ((128, 256, 256), 8, 256),
+    ((4, 264, 328), 8, 256), ((8, 256, 256), 8, 100),
+    ((2, 256, 256), 4, 1024), ((64, 128, 128), 8, 128),
+    ((16, 240, 360), 6, 256), ((2, 66, 90), 3, 2)])
+def test_clahe_hist_lut_is_bit_equal_to_the_order_exact_version(
+    cuda, shape, grid, nbins):
+  """Tiles of 33 x 41 pixels (one float a lane), 100 and 1024 bins, a 6 x 6
+  grid and 2 bins: histograms equal to the twin's, mappings bit-equal to
+  the sums in the kernel's order."""
+  image = _skewed(shape, 13, cuda)
+  before = _build.LAUNCHES['clahe_hist_lut']
+  hist, mapping = clahe_fused.clahe_hist_lut(image, grid, 0.01, nbins)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES['clahe_hist_lut'] == before + 1
+  want_hist, want_mapping = clahe_fused.hist_lut_order_exact(
+      image, grid, 0.01, nbins)
+  assert torch.equal(hist, want_hist)
+  assert torch.equal(
+      hist, clahe_fused.hist_lut_reference(image, grid, 0.01, nbins)[0])
+  assert float((mapping - want_mapping).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('shape,grid,nbins', [
+    ((8, 128, 128), 8, 256), ((16, 128, 128), 8, 128), ((4, 64, 64), 4, 100),
+    ((2, 32, 32), 2, 1024)])
+def test_clahe_small_is_bit_equal_to_the_split_pair(cuda, shape, grid, nbins):
+  """Both routes run clahe::tile_mapping: the one-launch kernel's frames
+  are the pair's bit for bit, and both are the remap of the order-exact
+  mapping."""
+  image = _skewed(shape, 14, cuda)
+  small, hist = clahe_fused.clahe_small(image, 0.01, grid, nbins,
+                                        return_hist=True)
+  pair_hist, mapping = clahe_fused.clahe_hist_lut(image, grid, 0.01, nbins)
+  pair = clahe_fused.clahe_remap(image, mapping)
+  _, exact = clahe_fused.hist_lut_order_exact(image, grid, 0.01, nbins)
+  torch.cuda.synchronize()
+  assert torch.equal(hist, pair_hist)
+  assert float((small - pair).abs().max()) == 0.0
+  assert float((small - clahe_fused.remap_reference(image, exact))
+               .abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('b,k,s,sigma_scale', [
+    (100, 512, 256, 1.0), (100, 512, 512, 1.0), (1, 77, 200, 1.0),
+    (4, 64, 128, 8.0), (2, 40, 1024, 1.0), (300, 64, 128, 1.0),
+    (3, 5, 1, 1.0)])
+def test_splat_render_is_bit_equal_to_the_atom_order_version(
+    cuda, b, k, s, sigma_scale):
+  """The main shapes; one frame with K not a multiple of 32; a radius (~38
+  rows) above a band's 8; frames wider than a chunk (1024); more images
+  than clusters on the card; a one-pixel frame."""
+  bx, by, w, sx, sy = _splat_inputs(b, k, s, 15, cuda)
+  sx, sy = sx * sigma_scale, sy * sigma_scale
+  before = _build.LAUNCHES['splat_render']
+  got = splat.splat_render(bx, by, w, sx, sy, image_size=s)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES['splat_render'] == before + 1
+  want = splat.splat_render_atom_order(bx, by, w, sx, sy, image_size=s)
+  assert float((got - want).abs().max()) == 0.0
+  assert float(got.amax()) == 1.0
