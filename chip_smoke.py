@@ -13,10 +13,11 @@ Phases (any failure exits non-zero before the final line):
      grid 8: histograms equal, max |d| <= 2e-5; the mapping bit-equal (max
      |d| 0) to `hist_lut_order_exact`, the sums in the kernel's order;
   5. each kernel timed (CUDA events around one call, median of 30 launches:
-     the wrapper's host time included) beside its twin and its bound; the
-     two kernels redesigned last also by their device time alone (CUPTI,
-     `torch.profiler`, the mean launch over a window of 20 calls whose
-     every launch was recorded, of up to three; else "not measured");
+     the wrapper's host time included) beside its twin and its bound;
+     `clahe_hist_lut`, `clahe_small`, `splat_render` and `clahe_interp`
+     also by their device time alone (CUPTI, `torch.profiler`, the mean
+     launch over a window of 20 calls whose every launch was recorded, of
+     up to three; else "not measured");
   6. the main path: `ppo_simple_images_tf` on small_eval (100 seeds, 512^2
      render) through the port's eval entry point on CUDA; success >= 0.95,
      average actions within 30.09 +- 6 (the JAX package's eval.json), every
@@ -35,7 +36,8 @@ Phases (any failure exits non-zero before the final line):
      with Philox draws element-wise at (128, 256, 256); `clahe_small`, the
      pair and noise_chain at (100, 256, 256) timed with bounds;
   9. path A, generator + detector: `sample_batch` at batch 64, noisy, at
-     128^2 (must launch `clahe_small`) and 256^2 (must launch the pair);
+     128^2 (must launch `clahe_small`) and 256^2 (must launch the pair),
+     each timed warm, after one call of its own;
      shapes, ranges, one-hot masks; the shipped UNet's pixel accuracy on
      the 256^2 batches (noisy and clean) against `DETECTOR_ACCURACY_BARS`;
      the UNet forward timed at (100, 256, 256, 1), TF32 (the detector's
@@ -61,8 +63,9 @@ Phases (any failure exits non-zero before the final line):
   14. path A: `multi_dopant_3_planner` on small_eval, success >= 0.95;
       `multi_dopant_2_distilled` on tiny_eval, success >= 0.75;
   15. path B: `multi_dopant_3_vision_planner` on small_eval (batch 100,
-      256^2 frames, UNet, peaks, planner), success >= 0.80, the noise chain
-      and the split CLAHE pair launched;
+      256^2 frames, UNet, peaks, planner), success >= 0.85 (the JAX
+      package's rate less three standard errors), the noise chain and the
+      split CLAHE pair launched;
   16. a `kernels` JSON line; 17. the result JSON line, last.
 
 It imports nothing of JAX or of putting_dune_tpu (the shipped weights are
@@ -113,6 +116,12 @@ INTERP_OPS_PER_PIXEL = 9
 # measures both packages and holds these bars to that rule).
 DETECTOR_ACCURACY_BARS = {'noisy': 0.80, 'clean': 0.93}
 
+# Least success of `multi_dopant_3_vision_planner` on small_eval: the JAX
+# package's 0.93 on the same 100 seeds on the CPU
+# (`scripts/eval_cpu_pair.py --seeds=small_eval`; the port there reads
+# 0.95) less three binomial standard errors at 100 episodes (3 x 0.0255).
+MULTI_DOPANT_VISION_SUCCESS_BAR = 0.85
+
 # The pallas_call sites each kernel covers (file:line, further lines of
 # the same file after commas).
 TPU_SITES = {
@@ -132,10 +141,14 @@ TPU_SITES = {
 SOURCES = {name: f'putting_dune_torch/csrc/{name}.cu' for name in TPU_SITES}
 
 # The `__global__` functions one wrapper call launches, once each, for the
-# kernels timed by their device time alone.
+# kernels timed by their device time alone. A profiler record names a
+# template instantiation in full (`clahe_small_kernel<4, 8>(...)`): the
+# names here are matched as parts of it.
 KERNEL_NAMES = {
     'clahe_hist_lut': ('clahe_hist_lut_kernel',),
+    'clahe_small': ('clahe_small_kernel',),
     'splat_render': ('splat_render_kernel',),
+    'clahe_interp': ('clahe_interp_kernel',),
 }
 
 
@@ -610,6 +623,9 @@ def main() -> None:
   # 50 MB L2), and the same launch on one buffer for the L2-warm time.
   small_inputs = [x_small] + [frames((256, 128, 128)) for _ in range(3)]
   t_small = time_rotating_ms(clahe_fused.clahe_small, small_inputs)
+  device['clahe_small'] = device_ms(
+      rotating(clahe_fused.clahe_small, small_inputs),
+      KERNEL_NAMES['clahe_small'])
   t_small_warm = time_ms(lambda: clahe_fused.clahe_small(x_small))
   t_small_plain = time_ms(lambda: clahe_fused.clahe_reference(x_small),
                           repeats=20)
@@ -626,8 +642,9 @@ def main() -> None:
     return clahe_fused.clahe_remap(x, clahe_fused.clahe_hist_lut(x)[1])
 
   t_pair_at_small = time_rotating_ms(pair, small_inputs)
-  print(f'clahe_small (256, 128, 128): {t_small:.4f} ms ({t_small_warm:.4f} '
-        f'ms on one L2-resident buffer); split pair at the same shape '
+  print(f'clahe_small (256, 128, 128): {t_small:.4f} ms (device '
+        f"{fmt_ms(device['clahe_small'])}; {t_small_warm:.4f} ms on one "
+        f'L2-resident buffer); split pair at the same shape '
         f'{t_pair_at_small:.4f} ms', flush=True)
   del small_inputs
 
@@ -687,6 +704,12 @@ def main() -> None:
   for size, on_route, off_route in [
       (128, ('clahe_small',), ('clahe_hist_lut', 'clahe_remap')),
       (256, ('clahe_hist_lut', 'clahe_remap'), ('clahe_small',))]:
+    # One warm call first, so that the timed one pays no first-use cost.
+    t0 = time.perf_counter()
+    det_data.sample_batch(gen, lat, batch_size=64, image_size=size,
+                          noisy=True)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
     _build.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -697,8 +720,9 @@ def main() -> None:
     counted = dict(_build.LAUNCHES)
     path_launches[f'generator_{size}'] = counted
     image, mask = batch['image'], batch['mask']
-    print(f'path A sample_batch 64 x {size}^2 noisy: {seconds * 1e3:.1f} ms, '
-          f'launches {counted}', flush=True)
+    print(f'path A sample_batch 64 x {size}^2 noisy: {seconds * 1e3:.1f} ms '
+          f'warm (first call {first * 1e3:.1f} ms), launches {counted}',
+          flush=True)
     check(tuple(image.shape) == (64, size, size, 1)
           and tuple(mask.shape) == (64, size, size, 3), 'sample_batch shapes')
     check(bool(torch.isfinite(image).all()) and float(image.min()) >= 0.0
@@ -914,6 +938,8 @@ def main() -> None:
     bound_ms, bound_by = bound(nbytes, INTERP_OPS_PER_PIXEL * blocks.numel())
     t_kernel = time_ms(lambda: clahe_interp.clahe_interpolate(
         blocks, luts, wgt))
+    d_kernel = device_ms(lambda: clahe_interp.clahe_interpolate(
+        blocks, luts, wgt), KERNEL_NAMES['clahe_interp'])
     t_twin = time_ms(lambda: clahe_interp.clahe_interpolate_reference(
         blocks, luts, wgt), repeats=10)
     _, map_n = clahe_fused.clahe_hist_lut(frames_n)
@@ -922,16 +948,17 @@ def main() -> None:
         frames_n, backend='interp'), repeats=10)
     t_default = time_ms(lambda: clahe_lib.equalize_adapthist(frames_n),
                         repeats=10)
-    print(f'clahe_interp {tuple(blocks.shape)}: {t_kernel:.4f} ms, twin '
-          f'{t_twin:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); '
+    print(f'clahe_interp {tuple(blocks.shape)}: {t_kernel:.4f} ms (device '
+          f'{fmt_ms(d_kernel)}), twin {t_twin:.4f} ms, bound {bound_ms:.4f} '
+          f'ms ({bound_by}); '
           f'clahe_remap on the same frames {t_remap_n:.4f} ms; whole '
           f'interpolation route {t_whole:.4f} ms, default route '
           f'{t_default:.4f} ms', flush=True)
     interp_rows[size] = {
-        'shape': list(blocks.shape), 'ms': t_kernel, 'plain_ms': t_twin,
-        'bound_ms': bound_ms, 'bound_by': bound_by, 'max_abs_err': err,
-        'clahe_remap_ms': t_remap_n, 'whole_route_ms': t_whole,
-        'default_route_ms': t_default}
+        'shape': list(blocks.shape), 'ms': t_kernel, 'device_ms': d_kernel,
+        'plain_ms': t_twin, 'bound_ms': bound_ms, 'bound_by': bound_by,
+        'max_abs_err': err, 'clahe_remap_ms': t_remap_n,
+        'whole_route_ms': t_whole, 'default_route_ms': t_default}
     del map_n
   del blocks, luts, wgt, got, noisy
   row = interp_rows[256]
@@ -939,6 +966,7 @@ def main() -> None:
                           row['bound_ms'], row['bound_by'],
                           SOURCES['clahe_interp'])
   shapes['clahe_interp'] = tuple(row['shape'])
+  device['clahe_interp'] = row['device_ms']
   other_shapes['clahe_interp'].append(interp_rows[512])
   torch.cuda.empty_cache()
 
@@ -990,7 +1018,8 @@ def main() -> None:
   run_eval('multi_dopant_2_distilled', 0.75, suite='tiny_eval', path='path A')
 
   # -- 15. path B: the multi-dopant perception loop ------------------------------
-  counted = run_eval('multi_dopant_3_vision_planner', 0.80)
+  counted = run_eval('multi_dopant_3_vision_planner',
+                     MULTI_DOPANT_VISION_SUCCESS_BAR)
   path_launches['multi_dopant_3_vision_planner_256'] = counted
   for name in ('noise_chain', 'clahe_hist_lut', 'clahe_remap'):
     check(counted[name] > 0,

@@ -53,6 +53,9 @@ class TimeStep:
   def first(self) -> torch.Tensor:
     return self.step_type == FIRST
 
+  def last(self) -> torch.Tensor:
+    return self.step_type == LAST
+
 
 @dataclasses.dataclass
 class EnvState:
@@ -172,6 +175,10 @@ class PuttingDuneEnv:
         config=self.config.sim,
         return_window=self.features.requires_window, return_image=False,
     )
+    # A fresh episode's observation has no controls: drop them, as the JAX
+    # package does, so that stepped and fresh observations match leaf for
+    # leaf.
+    obs = dataclasses.replace(obs, last_controls=None)
     new_material = sim_state.material
     si_material = lattice_lib.site_position(
         self.lattice, new_material.si_index, new_material.offset,
@@ -249,3 +256,11 @@ class PuttingDuneEnv:
         elapsed_seconds=picked_obs.elapsed_seconds,
     )
     return new_state, ts
+
+  # -- specs ----------------------------------------------------------------
+
+  def action_spec(self) -> action_adapters.ActionSpec:
+    return self.adapter.spec()
+
+  def observation_spec(self):
+    return self.features.spec()

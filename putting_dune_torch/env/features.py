@@ -41,6 +41,9 @@ class SingleSiliconPristineGrapheneFeatures:
   requires_image: bool = False
   requires_window: bool = False
 
+  def spec(self) -> FeatureSpec:
+    return FeatureSpec((10,))
+
   def __call__(self, obs, goal) -> torch.Tensor:
     deltas = (obs.neighbor_positions_microscope
               - obs.si_position_microscope[..., None, :])
@@ -61,6 +64,9 @@ class SingleSiliconMaterialFrameFeatures:
 
   requires_image: bool = False
   requires_window: bool = False
+
+  def spec(self) -> FeatureSpec:
+    return FeatureSpec((10,))
 
   def __call__(self, obs, goal) -> torch.Tensor:
     si_material = obs.fov.microscope_to_material(obs.si_position_microscope)
@@ -84,6 +90,12 @@ class ImageFeatures:
   image_size: int = 128
   requires_image: bool = True
   requires_window: bool = False
+
+  def spec(self) -> Dict[str, FeatureSpec]:
+    return {
+        'image': FeatureSpec((self.image_size, self.image_size, 1)),
+        'goal_delta_angstroms': FeatureSpec((2,)),
+    }
 
   def __call__(self, obs, goal) -> Dict[str, torch.Tensor]:
     if obs.image is None:

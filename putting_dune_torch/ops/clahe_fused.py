@@ -13,8 +13,9 @@ with several histogram kernels); the port has
     blocks, edge-clamped at the border -- the math of the JAX package's
     CPU path (putting_dune_tpu/imaging/clahe.py), in f32;
   * `clahe_small` (csrc/clahe_small.cu): both steps in one launch, one
-    block per image, histograms and mappings held in shared memory, for
-    frames whose tiles have at most `SMALL_TILE_PIXELS` pixels.
+    block per image and a warp per tile, histograms and mappings held in
+    shared memory, for frames whose tiles have at most `SMALL_TILE_PIXELS`
+    pixels.
 
 Every kernel takes `nbins` (2..`MAX_NBINS`) and the grid at run time.
 Which route a frame takes is decided by its shape alone
@@ -29,6 +30,7 @@ bit for bit, on the card and in the tests.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -270,8 +272,7 @@ def clahe_small(
     out = remap_reference(image, mapping)
     return (out, hist) if return_hist else out
   _cuda_only('clahe_small', image, nbins)
-  shared = _build.function('clahe_small', 'clahe_small_shared_bytes',
-                           [ctypes.c_int] * 2)(g, nbins)
+  shared = _small_shared_bytes(h, w, g, nbins)
   if shared > MAX_SHARED_BYTES:
     raise ValueError(
         f'clahe_small: grid {g} x {nbins} bins needs {shared} bytes of '
@@ -291,3 +292,12 @@ def clahe_small(
   _build.check_status('clahe_small', status)
   _build.count_launch('clahe_small')
   return (out, hist) if return_hist else out
+
+
+@functools.lru_cache(maxsize=None)
+def _small_shared_bytes(height: int, width: int, grid: int, nbins: int) -> int:
+  """Dynamic shared memory of a `clahe_small` launch at this shape, asked of
+  the library once per shape."""
+  return _build.function(
+      'clahe_small', 'clahe_small_shared_bytes', [ctypes.c_int] * 4,
+      ctypes.c_longlong)(height, width, grid, nbins)

@@ -125,6 +125,7 @@ def _observe(
     *,
     return_window: bool,
     return_image: bool,
+    last_controls: Optional[structures.BeamControl] = None,
 ) -> structures.MicroscopeObservation:
   """Builds the observation for the current state."""
   material = state.material
@@ -160,6 +161,7 @@ def _observe(
       neighbor_positions_microscope=nbr_micro,
       elapsed_seconds=elapsed_seconds,
       silicon_in_view=silicon_in_view,
+      last_controls=last_controls,
       window=window,
       image=image,
   )
@@ -251,5 +253,6 @@ def step(
   new_state = structures.SimulatorState(
       material=material, fov=new_fov, imaging=state.imaging)
   obs = _observe(lattice, new_state, elapsed, config, gen,
-                 return_window=return_window, return_image=return_image)
+                 return_window=return_window, return_image=return_image,
+                 last_controls=control)
   return new_state, obs, result

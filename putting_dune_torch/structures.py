@@ -58,6 +58,29 @@ class FieldOfView:
   def height(self) -> torch.Tensor:
     return self.upper_right[..., 1] - self.lower_left[..., 1]
 
+  @property
+  def offset(self) -> torch.Tensor:
+    """Center of the FOV, (..., 2)."""
+    return (self.lower_left + self.upper_right) / 2.0
+
+  def shift(self, delta: torch.Tensor) -> 'FieldOfView':
+    return FieldOfView(self.lower_left + delta, self.upper_right + delta)
+
+  def resize(self, new_width, new_height) -> 'FieldOfView':
+    """Resizes around the current center; a scalar size broadcasts over
+    the batch."""
+    like = self.lower_left
+    half = torch.stack(
+        [torch.broadcast_to(torch.as_tensor(size, dtype=like.dtype,
+                                            device=like.device),
+                            self.width.shape)
+         for size in (new_width, new_height)], dim=-1) / 2.0
+    center = self.offset
+    return FieldOfView(center - half, center + half)
+
+  def zoom(self, zoom_factor) -> 'FieldOfView':
+    return self.resize(self.width / zoom_factor, self.height / zoom_factor)
+
   def microscope_to_material(self, point: torch.Tensor) -> torch.Tensor:
     return geometry.microscope_to_material(
         point, self.lower_left, self.upper_right)
@@ -75,10 +98,14 @@ class BeamControl:
     position: (B, 2); adapters emit the microscope frame, the KMC core
       takes the material frame.
     dwell_seconds: (B,) seconds, float32.
+    voltage_kv: (B,) or None.
+    current_na: (B,) or None.
   """
 
   position: torch.Tensor
   dwell_seconds: torch.Tensor
+  voltage_kv: Optional[torch.Tensor] = None
+  current_na: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -140,6 +167,8 @@ class MicroscopeObservation:
     neighbor_positions_microscope: (B, 3, 2) its 3 neighbors.
     elapsed_seconds: (B,) simulated seconds consumed by the step.
     silicon_in_view: (B,) bool.
+    last_controls: the controls applied this step (microscope frame);
+      None after a reset, and on the observation the env steps on.
     window: optional AtomWindow crop of the FOV.
     image: optional (B, H, W) rendered STEM image.
   """
@@ -149,6 +178,7 @@ class MicroscopeObservation:
   neighbor_positions_microscope: torch.Tensor
   elapsed_seconds: torch.Tensor
   silicon_in_view: torch.Tensor
+  last_controls: Optional[BeamControl] = None
   window: Optional[AtomWindow] = None
   image: Optional[torch.Tensor] = None
 

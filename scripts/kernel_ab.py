@@ -1,4 +1,4 @@
-"""clahe_hist_lut and splat_render of two checkouts, timed in turns on one card.
+"""Kernels of two checkouts, timed in turns on one card.
 
   python3 scripts/kernel_ab.py OTHER_ROOT
 
@@ -7,10 +7,14 @@ unpacked with `git archive`). The script runs its own `--measure ROOT` mode in
 a fresh process for OTHER_ROOT, this checkout, this checkout and OTHER_ROOT
 (a b b a). Each process imports `putting_dune_torch` from its ROOT, builds
 that checkout's kernels from its csrc/, makes the same inputs from seeds and
-times both kernels at the shapes of chip_smoke.py:
+times clahe_hist_lut, clahe_small and splat_render at the shapes of
+chip_smoke.py:
 
   * clahe_hist_lut on the noise-chain batch of phase 4, (100, 512, 512), and
     on four (128, 256, 256) batches of rand ** 2.5 in turn (phase 8);
+  * clahe_small on four (256, 128, 128) batches of rand ** 2.5 in turn
+    (phase 8), and beside it the split pair (clahe_hist_lut then
+    clahe_remap) on the same batches;
   * splat_render on the atom windows of a multi_dopant_3_vision_planner env
     at batch 100, S = 256 and 512 (phase 11).
 
@@ -72,7 +76,8 @@ def measure(root: str) -> dict:
   from putting_dune_torch.ops import splat
 
   dev = torch.device('cuda')
-  _build.build_all(('noise_chain', 'clahe_hist_lut', 'splat_render'))
+  _build.build_all(('noise_chain', 'clahe_hist_lut', 'clahe_remap',
+                    'clahe_small', 'splat_render'))
   gen = torch.Generator(device=dev).manual_seed(0)
   b = 100
   params = imaging_params.sample_imaging_params(gen, b, device=dev)
@@ -83,9 +88,12 @@ def measure(root: str) -> dict:
   del clean
   skewed = [torch.rand((128, 256, 256), generator=gen, device=dev) ** 2.5
             for _ in range(4)]
+  small = [torch.rand((256, 128, 128), generator=gen, device=dev) ** 2.5
+           for _ in range(4)]
   result = {'root': root}
   names = {k: kernel_names(root, k)
-           for k in ('clahe_hist_lut', 'splat_render')}
+           for k in ('clahe_hist_lut', 'clahe_remap', 'clahe_small',
+                     'splat_render')}
   result['kernel_names'] = names
   for key, fn in (
       ('clahe_hist_lut (100, 512, 512)',
@@ -94,6 +102,16 @@ def measure(root: str) -> dict:
        smoke.rotating(clahe_fused.clahe_hist_lut, skewed))):
     result[key] = {'ms': smoke.time_ms(fn),
                    'device_ms': smoke.device_ms(fn, names['clahe_hist_lut'])}
+  for key, fn, kernels in (
+      ('clahe_small (256, 128, 128)', clahe_fused.clahe_small,
+       names['clahe_small']),
+      ('clahe pair (256, 128, 128)',
+       lambda x: clahe_fused.clahe_remap(x, clahe_fused.clahe_hist_lut(x)[1]),
+       names['clahe_hist_lut'] + names['clahe_remap'])):
+    result[key] = {
+        'ms': smoke.time_rotating_ms(fn, small),
+        'device_ms': smoke.device_ms(smoke.rotating(fn, small), kernels)}
+  del small
 
   md_env = registry.create_multi_dopant_experiment(
       'multi_dopant_3_vision_planner').make_env(b, device=dev)

@@ -53,15 +53,14 @@ def test_size_classes_match_jax(size, route):
   assert np.abs(got - want).max() <= TOL
 
 
-@pytest.mark.parametrize('nbins', [256, 128])
-def test_small_route_matches_pallas_fused_interpret(nbins):
-  """`clahe_small`'s twin against the Pallas kernel it replaces."""
-  b, s, g = 2, 64, 8
-  th = tw = s // g
-  img = _frames(7, b, s, s)
+def _hold_small_against_pallas(b, h, w, g, nbins, seed=7):
+  """`clahe_small`'s twin and histograms against the Pallas `clahe_fused`
+  in interpret mode, on the dual-block layout that kernel takes."""
+  th, tw = h // g, w // g
+  img = _frames(seed, b, h, w)
   bins = np.clip((img * nbins).astype(np.int32), 0, nbins - 1)
-  pad = th // 2
-  padded = np.pad(bins, ((0, 0), (pad, th - pad), (pad, tw - pad)),
+  pad_y, pad_x = th // 2, tw // 2
+  padded = np.pad(bins, ((0, 0), (pad_y, th - pad_y), (pad_x, tw - pad_x)),
                   mode='edge')
   blocks = padded.reshape(b, g + 1, th, g + 1, tw).transpose(
       0, 1, 3, 2, 4).reshape(b, (g + 1) ** 2, th * tw)
@@ -76,8 +75,8 @@ def test_small_route_matches_pallas_fused_interpret(nbins):
       tw=tw, nbins=nbins, clip_limit=0.01, interpret=True))
   want = out_blocks.reshape(b, g + 1, g + 1, th, tw).transpose(
       0, 1, 3, 2, 4).reshape(b, (g + 1) * th, (g + 1) * tw)[
-          :, pad:pad + s, pad:pad + s]
-  got, hist = t_cf.clahe_small(torch.from_numpy(img), nbins=nbins,
+          :, pad_y:pad_y + h, pad_x:pad_x + w]
+  got, hist = t_cf.clahe_small(torch.from_numpy(img), 0.01, g, nbins,
                                return_hist=True)
   assert np.abs(got.numpy() - want).max() <= TOL
   # The integer tile histograms, against a direct count.
@@ -86,6 +85,22 @@ def test_small_route_matches_pallas_fused_interpret(nbins):
                 for t in range(g * g)]) for i in range(b)])
   np.testing.assert_array_equal(
       hist.numpy().reshape(b, g * g, nbins), counts)
+
+
+@pytest.mark.parametrize('nbins', [256, 128])
+def test_small_route_matches_pallas_fused_interpret(nbins):
+  """`clahe_small`'s twin against the Pallas kernel it replaces."""
+  _hold_small_against_pallas(2, 64, 64, 8, nbins)
+
+
+@pytest.mark.parametrize('shape,grid,nbins', [
+    ((3, 96, 160), 8, 256), ((4, 64, 64), 4, 100), ((1, 64, 64), 8, 64),
+    ((2, 128, 128), 8, 256)])
+def test_small_route_matches_pallas_fused_interpret_at_more_shapes(
+    shape, grid, nbins):
+  """Tiles of 12 x 20 pixels, a 4 x 4 grid with 100 bins, 64^2 and 128^2
+  frames (the generator's size)."""
+  _hold_small_against_pallas(*shape, grid, nbins, seed=sum(shape))
 
 
 def test_small_route_equals_split_pair():

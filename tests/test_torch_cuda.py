@@ -376,6 +376,34 @@ def test_clahe_small_is_bit_equal_to_the_split_pair(cuda, shape, grid, nbins):
                .abs().max()) == 0.0
 
 
+@pytest.mark.parametrize('shape,grid,nbins', [
+    ((1, 128, 128), 8, 256), ((7, 128, 128), 8, 256),
+    ((3, 96, 96), 8, 256), ((3, 96, 160), 8, 256), ((3, 144, 240), 12, 256),
+    ((2, 256, 256), 16, 128), ((2, 128, 256), 8, 256), ((2, 120, 72), 8, 100),
+    ((1, 1024, 8), 8, 256), ((2, 64, 64), 4, 1024), ((5, 16, 16), 1, 256)])
+def test_clahe_small_more_shapes_are_bit_equal_to_the_split_pair(
+    cuda, shape, grid, nbins):
+  """Batch 1 and an odd batch; tiles 12 pixels wide and 12 x 20; grids of
+  12 and 16 (the block's 16 warps take several tiles each); 512-pixel
+  tiles; odd tile widths and 1-pixel-wide tiles (one float a lane); 1024
+  bins; one tile. Histograms equal to the pair's and the twin's, frames
+  max |d| 0 against the pair."""
+  image = _skewed(shape, 16, cuda)
+  before = _build.LAUNCHES['clahe_small']
+  small, hist = clahe_fused.clahe_small(image, 0.01, grid, nbins,
+                                        return_hist=True)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES['clahe_small'] == before + 1
+  pair_hist, mapping = clahe_fused.clahe_hist_lut(image, grid, 0.01, nbins)
+  pair = clahe_fused.clahe_remap(image, mapping)
+  torch.cuda.synchronize()
+  assert torch.equal(hist, pair_hist)
+  assert torch.equal(
+      hist, clahe_fused.hist_lut_reference(image, grid, 0.01, nbins)[0])
+  assert float((small - pair).abs().max()) == 0.0
+  assert torch.equal(small, clahe_fused.clahe_small(image, 0.01, grid, nbins))
+
+
 @pytest.mark.parametrize('b,k,s,sigma_scale', [
     (100, 512, 256, 1.0), (100, 512, 512, 1.0), (1, 77, 200, 1.0),
     (4, 64, 128, 8.0), (2, 40, 1024, 1.0), (300, 64, 128, 1.0),
