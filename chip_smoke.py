@@ -66,7 +66,17 @@ Phases (any failure exits non-zero before the final line):
       256^2 frames, UNet, peaks, planner), success >= 0.85 (the JAX
       package's rate less three standard errors), the noise chain and the
       split CLAHE pair launched;
-  16. a `kernels` JSON line; 17. the result JSON line, last.
+  16. instrument drift (0.5 A per frame per axis), each on small_eval
+      through the eval entry point: `planner_simple_drift` and
+      `ppo_simple_drift` (success >= 0.5, the JAX test's bar);
+      `vision_planner_drift` and `vision_planner_drift_corrected` (512^2
+      render -> 256^2 features; `noise_chain`, `clahe_hist_lut` and
+      `clahe_remap` launched); `multi_dopant_2_vision_planner_drift` and
+      its `_corrected` twin (256^2 frames; `noise_chain` and the split pair
+      launched). Each corrected entry reaches `DRIFT_SUCCESS_BARS` (the JAX
+      package's CPU success less three binomial standard errors), and the
+      multi-dopant corrected entry succeeds more often than its twin;
+  17. a `kernels` JSON line; 18. the result JSON line, last.
 
 It imports nothing of JAX or of putting_dune_tpu (the shipped weights are
 read as data).
@@ -121,6 +131,15 @@ DETECTOR_ACCURACY_BARS = {'noisy': 0.80, 'clean': 0.93}
 # (`scripts/eval_cpu_pair.py --seeds=small_eval`; the port there reads
 # 0.95) less three binomial standard errors at 100 episodes (3 x 0.0255).
 MULTI_DOPANT_VISION_SUCCESS_BAR = 0.85
+
+# Least success of the drift-corrected entries on small_eval: the JAX
+# package's success on the same 100 seeds on the CPU
+# (`scripts/eval_cpu_pair.py --seeds=small_eval`) less three binomial
+# standard errors at 100 episodes.
+DRIFT_SUCCESS_BARS = {
+    'vision_planner_drift_corrected': 0.99 - 3 * 0.00995,
+    'multi_dopant_2_vision_planner_drift_corrected': 0.92 - 3 * 0.0271,
+}
 
 # The pallas_call sites each kernel covers (file:line, further lines of
 # the same file after commas).
@@ -794,7 +813,10 @@ def main() -> None:
           f"launches {counted}", flush=True)
     check(a['average_num_times_reached_goal'] >= bar,
           f'{name} success below {bar}')
+    eval_success[name] = a['average_num_times_reached_goal']
     return counted
+
+  eval_success = {}
 
   counted = run_eval('vision_planner_simple_rates', 0.90)
   path_launches['vision_planner_512'] = counted
@@ -1027,7 +1049,27 @@ def main() -> None:
   for name in ('splat_render', 'clahe_interp', 'clahe_small'):
     check(counted[name] == 0, f'{name} launched on a default route')
 
-  # -- 16. kernels line --------------------------------------------------------
+  # -- 16. instrument drift ----------------------------------------------------
+  run_eval('planner_simple_drift', 0.0, path='drift')
+  run_eval('ppo_simple_drift', 0.5, path='drift')
+  for name, key in (('vision_planner_drift', 'vision_planner_drift_512'),
+                    ('vision_planner_drift_corrected',
+                     'vision_planner_drift_corrected_512'),
+                    ('multi_dopant_2_vision_planner_drift',
+                     'multi_dopant_2_vision_planner_drift_256'),
+                    ('multi_dopant_2_vision_planner_drift_corrected',
+                     'multi_dopant_2_vision_planner_drift_corrected_256')):
+    counted = run_eval(name, DRIFT_SUCCESS_BARS.get(name, 0.0), path='drift')
+    path_launches[key] = counted
+    for kernel in ('noise_chain', 'clahe_hist_lut', 'clahe_remap'):
+      check(counted[kernel] > 0, f'{kernel} was not launched on {name}')
+    for kernel in ('splat_render', 'clahe_interp', 'clahe_small'):
+      check(counted[kernel] == 0, f'{kernel} launched on a default route')
+  check(eval_success['multi_dopant_2_vision_planner_drift_corrected']
+        > eval_success['multi_dopant_2_vision_planner_drift'],
+        'the drift corrector does not raise the multi-dopant success')
+
+  # -- 17. kernels line --------------------------------------------------------
   kernels = []
   for name, (ms, plain_ms, err, bound_ms, bound_by, source) in rows.items():
     by_path = {path: counts[name] for path, counts in path_launches.items()}

@@ -9,7 +9,9 @@ Environments whose previous step ended the episode are reset inside
 step(): when at most `reset_chunk` finished, fresh states are built for
 just those envs and scattered back; otherwise a full fresh batch is built
 and selected per env. The STEM image is rendered once, after that
-selection. dm_env semantics per env:
+selection, through the believed FOV shifted by the instrument drift (see
+simulator.py): the camera sees the drifted world, while goals are judged
+on the true silicon. dm_env semantics per env:
 
   * FIRST: reward 0, discount gamma**elapsed;
   * terminal: discount 0;
@@ -164,8 +166,11 @@ class PuttingDuneEnv:
     material = state.sim.material
     si_prev = lattice_lib.site_position(
         self.lattice, material.si_index, material.offset, material.theta)
+    # The adapter aims at the silicon observed in the last frame, the true
+    # position plus the cumulative drift.
     ctx = action_adapters.AdapterContext(
-        si_position_microscope=state.sim.fov.material_to_microscope(si_prev),
+        si_position_microscope=state.sim.fov.material_to_microscope(
+            si_prev + state.sim.drift),
         fov=state.sim.fov,
     )
     adapter_state, control = self.adapter.to_controls(
@@ -236,11 +241,14 @@ class PuttingDuneEnv:
       picked_obs = structures.tree_map(pick, fresh_obs, obs)
 
     if self.features.requires_image:
+      # The drifted world: the true lattice through the believed FOV
+      # shifted by -drift (fresh rows have zero drift).
+      render_fov = new_state.sim.fov.shift(-new_state.sim.drift)
       window = simulator_lib.atom_window(
-          self.lattice, new_state.sim.material, new_state.sim.fov,
+          self.lattice, new_state.sim.material, render_fov,
           self.config.sim.window_capacity)
       image = imaging_render.render_stem_image(
-          gen, window, new_state.sim.fov, new_state.sim.imaging,
+          gen, window, render_fov, new_state.sim.imaging,
           image_size=self.config.sim.image_size)
       picked_obs = dataclasses.replace(picked_obs, image=image, window=window)
     observation = self.features(picked_obs, new_state.goal)

@@ -85,17 +85,27 @@ class SingleSiliconMaterialFrameFeatures:
 
 @dataclasses.dataclass(frozen=True)
 class ImageFeatures:
-  """{'image': (B, S, S, 1), 'goal_delta_angstroms': (B, 2)} features."""
+  """{'image': (B, S, S, 1), 'goal_delta_angstroms': (B, 2)} features.
+
+  include_fov adds the instrument's believed field of view,
+  'fov_lower_left' and 'fov_upper_right' (B, 2), material-frame angstroms:
+  in-loop drift correctors need it to tell commanded FOV motion from drift.
+  """
 
   image_size: int = 128
+  include_fov: bool = False
   requires_image: bool = True
   requires_window: bool = False
 
   def spec(self) -> Dict[str, FeatureSpec]:
-    return {
+    spec = {
         'image': FeatureSpec((self.image_size, self.image_size, 1)),
         'goal_delta_angstroms': FeatureSpec((2,)),
     }
+    if self.include_fov:
+      spec['fov_lower_left'] = FeatureSpec((2,))
+      spec['fov_upper_right'] = FeatureSpec((2,))
+    return spec
 
   def __call__(self, obs, goal) -> Dict[str, torch.Tensor]:
     if obs.image is None:
@@ -103,8 +113,12 @@ class ImageFeatures:
     image = obs.image
     if image.shape[-1] != self.image_size:
       image = render_lib.resize_bilinear(image, self.image_size)
-    return {
+    features = {
         'image': image[..., None].to(torch.float32),
         'goal_delta_angstroms': _goal_delta_angstroms(obs, goal).to(
             torch.float32),
     }
+    if self.include_fov:
+      features['fov_lower_left'] = obs.fov.lower_left.to(torch.float32)
+      features['fov_upper_right'] = obs.fov.upper_right.to(torch.float32)
+    return features

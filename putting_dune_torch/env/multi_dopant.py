@@ -17,9 +17,15 @@ goal delta) pairs, flattened: (D * 4,) in the material frame.
 Environments whose previous step ended the episode get a fresh FIRST
 timestep inside step(); the fresh batch is only built on steps where some
 environment needs it, and the observation (and so the STEM frame) is
-computed once, from the selected state. Instrument drift is not ported: a
-nonzero `drift_per_frame_angstroms` raises, and the state's `drift` stays
-zero.
+computed once, from the selected state.
+
+Instrument drift (`drift_per_frame_angstroms = d > 0`) follows
+simulator.py: each step adds a U(-d, d) increment per axis to the
+cumulative drift, drawn ahead of the KMC (nothing is drawn when d = 0); the
+beam aims at the dopant observed in the last frame and lands at -drift;
+observations report the drifted world (dopants at true + drift, the frame
+rendered through the believed FOV shifted by -drift) while goals are
+judged in the true frame.
 """
 
 from __future__ import annotations
@@ -66,7 +72,7 @@ class MultiDopantState:
   # dwell short. Always 0 under sane rate functions.
   kmc_truncation_count: torch.Tensor
   imaging: structures.ImagingParams  # per-episode render randomization
-  # (B, 2) cumulative instrument drift; always zero (drift is not ported).
+  # (B, 2) cumulative instrument drift, material-frame angstroms.
   drift: torch.Tensor
 
 
@@ -150,9 +156,6 @@ class MultiDopantEnv:
           self.lattice.positions.to(self.device),
           self.lattice.neighbors.to(self.device),
       )
-    if self.drift_per_frame_angstroms > 0.0:
-      raise NotImplementedError(
-          'instrument drift is not ported to putting_dune_torch.')
     for name, value, allowed in (
         ('action_mode', self.action_mode, _ACTION_MODES),
         ('observation_mode', self.observation_mode, _OBSERVATION_MODES),
@@ -271,7 +274,10 @@ class MultiDopantEnv:
   def _observation(self, state: MultiDopantState,
                    gen: Optional[torch.Generator] = None):
     si_raw = self._si_positions(state)
-    si, delta = si_raw, state.goals - si_raw
+    # The instrument observes the drifted world: the recorded goals
+    # (believed frame, calibrated at reset) go stale by the drift.
+    si_obs = si_raw + state.drift[:, None, :]
+    si, delta = si_obs, state.goals - si_obs
     if self.sticky_goals:
       # Latched goals read as zero delta.
       delta = torch.where(state.latched[..., None],
@@ -286,9 +292,10 @@ class MultiDopantEnv:
       if gen is None:
         raise ValueError('image observations require a generator')
       fov = self._fov(state)
-      window = self._atom_window(state, fov=fov)
+      render_fov = fov.shift(-state.drift)
+      window = self._atom_window(state, fov=render_fov)
       image = imaging_render.render_stem_image(
-          gen, window, fov, state.imaging, image_size=self.image_size)
+          gen, window, render_fov, state.imaging, image_size=self.image_size)
       obs = {
           'image': image[..., None],
           'goal_delta_angstroms': delta.reshape(b, -1),
@@ -391,15 +398,25 @@ class MultiDopantEnv:
            ) -> tuple[MultiDopantState, env_lib.TimeStep]:
     """Advances every environment one step (auto-resetting finished ones)."""
     b, dev = self.batch_size, self.device
+    # The drift advances before the beam lands: the beam misses by one
+    # increment.
+    drift = state.drift
+    d = self.drift_per_frame_angstroms
+    if d > 0.0:
+      drift = drift + (torch.rand((b, 2), generator=gen, device=dev)
+                       * (2.0 * d) - d)
     action = torch.clamp(action, -1.0, 1.0)
     if self.action_mode == 'relative':
-      si = self._si_positions(state)  # (B, D, 2)
+      # Offset from the observed anchor dopant of the last frame.
+      si = self._si_positions(state) + state.drift[:, None, :]  # (B, D, 2)
       pick_d = self._anchor_index(state, si)  # (B,)
       anchor = si[torch.arange(b, device=dev), pick_d]  # (B, 2)
       beam = anchor + action * self.max_distance_angstroms
     else:
       frac = (action + 1.0) / 2.0
       beam = state.fov_lower + frac * (state.fov_upper - state.fov_lower)
+    # Believed-frame coordinates sit at +drift from the true sample.
+    beam = beam - drift
 
     result = kmc.apply_control_multi(
         gen, self.lattice, state.offset, state.theta, state.si_indices, beam,
@@ -412,6 +429,7 @@ class MultiDopantEnv:
         state,
         si_indices=result.si_indices,
         steps=state.steps + 1,
+        drift=drift,
         kmc_truncation_count=state.kmc_truncation_count
         + result.truncated.to(torch.int32),
     )

@@ -4,10 +4,14 @@
       [--eval_suite=small_eval] [--device=cpu]
 
 Experiments: relative_random_simple, greedy_simple_rates,
-ppo_simple_images_tf, planner_simple_rates, vision_planner_simple_rates,
-and the multi-dopant ones (registry.multi_dopant_experiment_names():
+ppo_simple_images_tf, planner_simple_rates, vision_planner_simple_rates;
+under instrument drift planner_simple_drift, ppo_simple_drift,
+planner_simple_drift_variable_time, planner_simple_drift_frame_dwell,
+vision_planner_drift and vision_planner_drift_corrected; and the
+multi-dopant ones (registry.multi_dopant_experiment_names():
 multi_dopant_{2,3,4}_planner, multi_dopant_{2,3,4}_random,
-multi_dopant_{2,3}_{ppo,distilled,vision_planner}).
+multi_dopant_{2,3}_{ppo,distilled,vision_planner},
+multi_dopant_2_vision_planner_drift{,_corrected}).
 
 Runs the suite as one batch of environments (CUDA by default; raises if
 CUDA is absent unless --device=cpu) and prints the aggregate as JSON.
@@ -35,9 +39,10 @@ class Args:
 
 def policy_for_agent(agent):
   """The batched policy of what an experiment's `get_policy` returned (the
-  JAX package's `_policy_for_agent`): a registry agent (the planner and
-  vision-planner agents) exposes `policy()`; anything else already is a
-  `(gen, observation) -> action` callable."""
+  JAX package's `_policy_for_agent`): a registry agent (the planner,
+  vision-planner and drift-corrected agents) exposes `policy()`, a
+  callable or an `eval_lib.StatefulPolicy` that the loop carries; anything
+  else already is a `(gen, observation) -> action` callable."""
   return agent.policy() if hasattr(agent, 'policy') else agent
 
 

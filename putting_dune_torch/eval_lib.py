@@ -3,8 +3,10 @@
 `evaluate_batched` runs a whole suite as one batch of environments on the
 env's device; each env stops contributing once its episode ends. The
 combined budget (simulated env seconds + the batch-shared wall clock,
-600 s by default) truncates live episodes, checked every step. The host
-per-seed evaluator is not ported yet.
+600 s by default) truncates live episodes, checked every step. A policy is
+a `(gen, observation) -> action` callable or a `StatefulPolicy`, whose
+state the loop carries on the device. The host per-seed evaluator is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +34,34 @@ DEFAULT_TIMEOUT_SECONDS = 600.0
 BATCHED_EVALUATOR = 'batched(sim+wall)'
 
 Policy = Callable[[torch.Generator, object], torch.Tensor]
+
+
+class StatefulPolicy:
+  """Protocol for policies that carry device state across steps (the
+  in-loop drift corrector of agents/drift_correction.py tracks a frame
+  history). Implementations provide
+
+    init(example_obs) -> pstate        # tensors with a leading batch dim
+    step(pstate, gen, obs, first) -> (pstate, action)
+
+  `first` is the (B,) bool FIRST mask of the timestep the policy acts on:
+  rows that auto-reset re-initialise their slice of the carried state.
+  """
+
+  def init(self, example_obs):
+    raise NotImplementedError
+
+  def step(self, pstate, gen, obs, first):
+    raise NotImplementedError
+
+
+def policy_stepper(policy, example_obs):
+  """(pstate, step) for either kind of policy, with
+  `step(pstate, gen, obs, first) -> (pstate, action)`; a stateless policy
+  carries None and ignores `first`."""
+  if isinstance(policy, StatefulPolicy):
+    return policy.init(example_obs), policy.step
+  return None, lambda pstate, gen, obs, first: (None, policy(gen, obs))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +127,7 @@ def evaluate_batched(
   Args:
     env: the batched environment (PuttingDuneEnv or MultiDopantEnv);
       env.batch_size must equal len(seeds).
-    policy: (gen, observation) -> action.
+    policy: (gen, observation) -> action, or a StatefulPolicy.
     seeds: one seed per environment; the generator is seeded from the
       whole list (suite_seed).
     timeout_seconds: combined per-episode budget (simulated seconds plus
@@ -126,13 +156,14 @@ def evaluate_batched(
     env_seconds = ts.elapsed_seconds.clone()
     reward = torch.zeros((batch,), device=device)
     kmc_truncations = 0
+    pstate, policy_step = policy_stepper(policy, ts.observation)
 
     t_start = time.perf_counter()
     for _ in range(max_steps):
       wall = time.perf_counter() - t_start
       if wall >= timeout_seconds:
         break
-      action = policy(gen, ts.observation)
+      pstate, action = policy_step(pstate, gen, ts.observation, ts.first())
       prev_trunc = state.kmc_truncation_count
       state, ts = env.step(state, action, gen)
       live = ~done

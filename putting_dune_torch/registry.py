@@ -20,6 +20,7 @@ from putting_dune_torch import constants
 from putting_dune_torch import lattice as lattice_lib
 from putting_dune_torch import rates as rates_lib
 from putting_dune_torch.agents import agent_lib
+from putting_dune_torch.agents import drift_correction
 from putting_dune_torch.agents import eval_agent
 from putting_dune_torch.agents import planner as planner_lib
 from putting_dune_torch.agents import vision_planner as vision_planner_lib
@@ -105,6 +106,19 @@ def _vision_planner_agent(adapters_and_goal, device, rate_fn=None):
   )
 
 
+def _drift_corrected_vision_planner_agent(adapters_and_goal, device):
+  """Vision planner with in-loop phase-correlation drift correction:
+  drifting microscope -> pixels -> shipped UNet -> geometry and drift
+  estimate -> rate-aware planner."""
+  adapter = adapters_and_goal.action_adapter
+  return drift_correction.DriftCorrectedVisionPlannerAgent(
+      rate_fn=rates_lib.simple_canonical_rates,
+      dwell_seconds=float(adapter.min_dwell_seconds),
+      max_distance_angstroms=float(adapter.max_distance_angstroms),
+      device=device,
+  )
+
+
 def _single_silicon_goal_reaching():
   return AdaptersAndGoal(
       action_adapter=action_adapters.RelativeToSiliconActionAdapter(),
@@ -114,30 +128,57 @@ def _single_silicon_goal_reaching():
 
 def _single_silicon_from_pixels(
     min_dwell_seconds=1.5, max_dwell_seconds=1.5, max_distance_angstroms=BOND,
-    image_size=128,
+    image_size=128, include_fov=False,
 ):
   return AdaptersAndGoal(
       action_adapter=action_adapters.RelativeToSiliconActionAdapter(
           min_dwell_seconds=min_dwell_seconds,
           max_dwell_seconds=max_dwell_seconds,
           max_distance_angstroms=max_distance_angstroms),
-      feature_constructor=features_lib.ImageFeatures(image_size=image_size),
+      feature_constructor=features_lib.ImageFeatures(
+          image_size=image_size, include_fov=include_fov),
   )
 
 
-def _greedy_material_frame_5s():
+def _material_frame(min_dwell_seconds=5.0, max_dwell_seconds=5.0):
+  """Material-frame features and actions, 2 bonds; a fixed 5 s dwell by
+  default."""
   return AdaptersAndGoal(
       action_adapter=(
           action_adapters.RelativeToSiliconMaterialFrameActionAdapter(
-              min_dwell_seconds=5.0, max_dwell_seconds=5.0,
+              min_dwell_seconds=min_dwell_seconds,
+              max_dwell_seconds=max_dwell_seconds,
               max_distance_angstroms=2 * BOND)),
       feature_constructor=features_lib.SingleSiliconMaterialFrameFeatures(),
   )
 
 
+# The planner picks the dwell too, from 1.5 to 20 s (a third action dim).
+_material_frame_variable_dwell = functools.partial(
+    _material_frame, min_dwell_seconds=1.5, max_dwell_seconds=20.0)
+
+
 def _simple_rates_config():
   return SimulatorSpec(rate_fn=rates_lib.simple_canonical_rates,
                        image_duration_seconds=2.0)
+
+
+def _simple_rates_drift_config():
+  """Simple rates + cumulative instrument drift. 0.5 A per frame per axis
+  keeps the worst per-step increment (0.71 A diagonal) below half the
+  graphene Bravais constant, so the corrector's search window can keep out
+  the lattice's alias peaks (agents/drift_correction.py)."""
+  return SimulatorSpec(rate_fn=rates_lib.simple_canonical_rates,
+                       image_duration_seconds=2.0,
+                       drift_per_frame_angstroms=0.5)
+
+
+# The pixel loops under drift: the drift-free vision planner's adapters,
+# with the believed FOV in the features for the corrector.
+_drift_from_pixels = functools.partial(
+    _single_silicon_from_pixels, min_dwell_seconds=5.0,
+    max_dwell_seconds=5.0, max_distance_angstroms=2 * BOND, image_size=256,
+    include_fov=True)
 
 
 _EVAL_EXPERIMENTS = {
@@ -153,13 +194,13 @@ _EVAL_EXPERIMENTS = {
     ),
     'greedy_simple_rates': EvalExperiment(
         get_policy=_greedy_policy,
-        get_adapters_and_goal=_greedy_material_frame_5s,
+        get_adapters_and_goal=_material_frame,
         get_simulator_config=_simple_rates_config,
     ),
     'planner_simple_rates': EvalExperiment(
         get_policy=functools.partial(
             _planner_agent, rate_fn=rates_lib.simple_canonical_rates),
-        get_adapters_and_goal=_greedy_material_frame_5s,
+        get_adapters_and_goal=_material_frame,
         get_simulator_config=_simple_rates_config,
     ),
     # Pixels to control with no policy learning: image features at 256^2,
@@ -171,6 +212,50 @@ _EVAL_EXPERIMENTS = {
             max_dwell_seconds=5.0, max_distance_angstroms=2 * BOND,
             image_size=256),
         get_simulator_config=_simple_rates_config,
+    ),
+    # Under instrument drift. Vector features: the neighbor deltas are
+    # translation invariant, so only the recorded goal vector goes stale.
+    'planner_simple_drift': EvalExperiment(
+        get_policy=functools.partial(
+            _planner_agent, rate_fn=rates_lib.simple_canonical_rates),
+        get_adapters_and_goal=_material_frame,
+        get_simulator_config=_simple_rates_drift_config,
+    ),
+    # The shipped policy trained under drift, on its training adapters.
+    'ppo_simple_drift': EvalExperiment(
+        get_policy=_checkpoint_policy('ppo_simple_drift'),
+        get_adapters_and_goal=_single_silicon_goal_reaching,
+        get_simulator_config=_simple_rates_drift_config,
+    ),
+    # Variable dwell under drift: drift accumulates per frame, so longer
+    # dwells buy more KMC progress per unit of drift.
+    'planner_simple_drift_variable_time': EvalExperiment(
+        get_policy=functools.partial(
+            _planner_agent, rate_fn=rates_lib.simple_canonical_rates),
+        get_adapters_and_goal=_material_frame_variable_dwell,
+        get_simulator_config=_simple_rates_drift_config,
+    ),
+    # The drift-aware dwell objective: progress per frame, with a Poisson
+    # overshoot penalty for transitions after the first.
+    'planner_simple_drift_frame_dwell': EvalExperiment(
+        get_policy=functools.partial(
+            _planner_agent, rate_fn=rates_lib.simple_canonical_rates,
+            dwell_objective='per_frame'),
+        get_adapters_and_goal=_material_frame_variable_dwell,
+        get_simulator_config=_simple_rates_drift_config,
+    ),
+    # The vision planner on a drifting microscope, uncorrected (the goal
+    # vector goes stale by the cumulative drift) and with the in-loop
+    # phase-correlation corrector.
+    'vision_planner_drift': EvalExperiment(
+        get_policy=_vision_planner_agent,
+        get_adapters_and_goal=_drift_from_pixels,
+        get_simulator_config=_simple_rates_drift_config,
+    ),
+    'vision_planner_drift_corrected': EvalExperiment(
+        get_policy=_drift_corrected_vision_planner_agent,
+        get_adapters_and_goal=_drift_from_pixels,
+        get_simulator_config=_simple_rates_drift_config,
     ),
 }
 
@@ -213,6 +298,7 @@ def _make_multi_dopant_env(
     observation_mode: str = 'vector',
     anchor_order: str = 'index',
     image_size: int = 128,
+    drift_per_frame_angstroms: float = 0.0,
     include_fov: bool = False,
     device=None,
 ):
@@ -232,6 +318,7 @@ def _make_multi_dopant_env(
       observation_mode=observation_mode,
       anchor_order=anchor_order,
       image_size=image_size,
+      drift_per_frame_angstroms=drift_per_frame_angstroms,
       include_fov=include_fov,
       device=device,
   )
@@ -278,21 +365,43 @@ class _MultiDopantVisionPlannerFactory:
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class _MultiDopantDriftCorrectedVisionPlannerFactory:
+  """get_agent for the drift-corrected D-dopant vision planner ('image'
+  observations, anchor_order='position', include_fov=True)."""
+
+  num_dopants: int
+  dwell_seconds: float = 5.0
+
+  def __call__(self, device):
+    return drift_correction.DriftCorrectedMultiDopantVisionPlannerAgent(
+        rate_fn=rates_lib.simple_canonical_rates,
+        num_dopants=self.num_dopants,
+        dwell_seconds=self.dwell_seconds,
+        max_distance_angstroms=2.0 * BOND,
+        device=device,
+    )
+
+
 def _vector_env(num_dopants, observation_mode='vector'):
   return functools.partial(
       _make_multi_dopant_env, num_dopants=num_dopants,
       observation_mode=observation_mode)
 
 
-def _vision_env(num_dopants):
+def _vision_env(num_dopants, **drift):
   # anchor_order='position' makes the peak <-> goal association observable
   # from the image alone; 256^2 is the detector's training size.
   return functools.partial(
       _make_multi_dopant_env, num_dopants=num_dopants,
-      observation_mode='image', anchor_order='position', image_size=256)
+      observation_mode='image', anchor_order='position', image_size=256,
+      **drift)
 
 
-# The JAX registry's entries less the two with instrument drift.
+# 0.5 A per frame per axis, cumulative, and the believed FOV in the
+# observations for the corrector.
+_DRIFT = dict(drift_per_frame_angstroms=0.5, include_fov=True)
+
 _MULTI_DOPANT_EXPERIMENTS = {
     'multi_dopant_2_ppo': MultiDopantExperiment(
         make_env=_vector_env(2),
@@ -339,6 +448,21 @@ _MULTI_DOPANT_EXPERIMENTS = {
         )
         for d in (2, 3)
     },
+    # The full stress config: multi-dopant lattice, long-horizon KMC,
+    # instrument drift and the whole image pipeline, uncorrected and with
+    # the in-loop corrector (phase correlation of detector maps + goal
+    # snapping).
+    'multi_dopant_2_vision_planner_drift': MultiDopantExperiment(
+        make_env=_vision_env(2, **_DRIFT),
+        get_agent=_MultiDopantVisionPlannerFactory(num_dopants=2),
+        num_dopants=2,
+    ),
+    'multi_dopant_2_vision_planner_drift_corrected': MultiDopantExperiment(
+        make_env=_vision_env(2, **_DRIFT),
+        get_agent=_MultiDopantDriftCorrectedVisionPlannerFactory(
+            num_dopants=2),
+        num_dopants=2,
+    ),
 }
 
 

@@ -12,8 +12,17 @@ parameters, and charges one image_duration; step converts the
 microscope-frame control with the current FOV, runs the KMC for the dwell,
 charges dwell + image_duration, and if the silicon left the
 [0.25, 0.75]^2 safe area recenters the FOV on it and charges a second
-image_duration. Instrument drift is not ported: a config with drift
-raises.
+image_duration.
+
+Instrument drift: with `drift_per_frame_angstroms = d > 0` every step adds
+a U(-d, d) increment per axis to the cumulative `state.drift` before the
+beam lands, drawn from the step's generator ahead of the KMC; with d = 0
+nothing extra is drawn, so drift-free runs keep their random stream. The
+instrument sees the drifted world through the FOV it believes in: the beam
+lands at its believed position less the drift, the safe-area check and
+the recentering use the observed silicon (true + drift), and observations
+are built through the believed FOV shifted by -drift while reporting the
+believed one.
 """
 
 from __future__ import annotations
@@ -46,16 +55,10 @@ class SimulatorConfig:
   window_capacity: int = 512
   image_size: int = 512
   noisy_images: bool = False
-  # Instrument drift is not ported; any nonzero value raises.
+  # Per-axis U(-d, d) drift increment added once per step, angstroms;
+  # 0.0 disables drift and draws nothing.
   drift_per_frame_angstroms: float = 0.0
   max_kmc_events_per_step: Optional[int] = 10_000
-
-  def __post_init__(self):
-    if self.drift_per_frame_angstroms != 0.0:
-      raise NotImplementedError(
-          'Instrument drift is not ported to putting_dune_torch yet '
-          f'(drift_per_frame_angstroms={self.drift_per_frame_angstroms}).'
-      )
 
 
 def _fov_around(si_pos: torch.Tensor, scale: torch.Tensor
@@ -127,9 +130,15 @@ def _observe(
     return_image: bool,
     last_controls: Optional[structures.BeamControl] = None,
 ) -> structures.MicroscopeObservation:
-  """Builds the observation for the current state."""
+  """Builds the observation for the current state.
+
+  The observation reports the drifted world: observing the world shifted by
+  +state.drift in the believed FOV is observing the true world through the
+  FOV shifted by -state.drift, so the conversions use the shifted FOV while
+  the observation reports the believed one.
+  """
   material = state.material
-  fov = state.fov
+  fov = state.fov.shift(-state.drift)
   si_pos = lattice_lib.site_position(
       lattice, material.si_index, material.offset, material.theta
   )
@@ -156,7 +165,7 @@ def _observe(
     if not return_window:
       window = None
   return structures.MicroscopeObservation(
-      fov=fov,
+      fov=state.fov,
       si_position_microscope=si_micro,
       neighbor_positions_microscope=nbr_micro,
       elapsed_seconds=elapsed_seconds,
@@ -196,7 +205,8 @@ def reset(
       gen, batch_size, device=device, noisy=config.noisy_images
   )
   state = structures.SimulatorState(
-      material=material, fov=fov, imaging=imaging)
+      material=material, fov=fov, imaging=imaging,
+      drift=torch.zeros((batch_size, 2), device=device))
   elapsed = torch.full((batch_size,), config.image_duration_seconds,
                        device=device)
   obs = _observe(lattice, state, elapsed, config, gen,
@@ -223,8 +233,16 @@ def step(
   """
   if rate_fn is None:
     rate_fn = rates_lib.prior_rates
+  # The drift advances before the beam lands: the controller aimed with
+  # the previous frame, so the beam misses by one increment.
+  drift = state.drift
+  d = config.drift_per_frame_angstroms
+  if d > 0.0:
+    drift = drift + (torch.rand(control.position.shape, generator=gen,
+                                device=drift.device) * (2.0 * d) - d)
   material = state.material
-  beam_material = state.fov.microscope_to_material(control.position)
+  # Believed-frame coordinates sit at +drift from the true sample frame.
+  beam_material = state.fov.microscope_to_material(control.position) - drift
   result = kmc.apply_control(
       gen, lattice, material.offset, material.theta, material.si_index,
       beam_material, control.dwell_seconds, rate_fn,
@@ -237,10 +255,12 @@ def step(
   si_pos = lattice_lib.site_position(
       lattice, material.si_index, material.offset, material.theta
   )
-  si_micro = state.fov.material_to_microscope(si_pos)
+  # The instrument checks and recenters on the silicon it observes.
+  si_observed = si_pos + drift
+  si_micro = state.fov.material_to_microscope(si_observed)
   outside = torch.any((si_micro < 0.25) | (si_micro > 0.75), dim=-1)
 
-  recentered = _fov_around(si_pos, state.fov.width)
+  recentered = _fov_around(si_observed, state.fov.width)
   new_fov = structures.FieldOfView(
       lower_left=torch.where(outside[..., None], recentered.lower_left,
                              state.fov.lower_left),
@@ -251,7 +271,7 @@ def step(
       outside, config.image_duration_seconds, 0.0
   )
   new_state = structures.SimulatorState(
-      material=material, fov=new_fov, imaging=state.imaging)
+      material=material, fov=new_fov, imaging=state.imaging, drift=drift)
   obs = _observe(lattice, new_state, elapsed, config, gen,
                  return_window=return_window, return_image=return_image,
                  last_controls=control)

@@ -185,8 +185,20 @@ class MicroscopeObservation:
 
 @dataclasses.dataclass
 class SimulatorState:
-  """Full simulator state between steps (instrument drift not ported)."""
+  """Full simulator state between steps.
+
+  Attributes:
+    material: lattice pose + dopant site.
+    fov: the field of view the instrument believes it images.
+    imaging: per-episode image randomization parameters.
+    drift: (B, 2) cumulative instrument drift, material-frame angstroms:
+      the true offset between the believed FOV and where the sample sits.
+      Observations are built from the drifted world; physics (KMC, goals)
+      stays in the true frame. Always a tensor (zeros without drift), so
+      that `tree_map` selects and scatters it on auto-reset.
+  """
 
   material: MaterialState
   fov: FieldOfView
   imaging: ImagingParams
+  drift: torch.Tensor

@@ -1,15 +1,21 @@
-"""One multi-dopant eval through both packages on the CPU, on the same seeds.
+"""One eval through both packages on the CPU, on the same seeds.
 
   python scripts/eval_cpu_pair.py --experiment_name=multi_dopant_3_vision_planner \
       [--seeds=0-19] [--step_limit=600] [--out_dir=runs/eval_pair]
 
+The experiment is a multi-dopant one or a single-dopant eval experiment of
+both registries (`vision_planner_drift_corrected`, say; the single-dopant
+env renders at its default 512^2).
+
 Runs the JAX package's and the PyTorch port's `evaluate_batched` on the CPU,
-one after the other, each in a process of its own (`--worker=jax|torch`; the
+at the same time, each in a process of its own (`--worker=jax|torch`; the
 JAX one with JAX_PLATFORMS=cpu, as the JAX package's tests run it). Both see
-one batch of environments over the same seed list (`--seeds`: `a-b`, both
-ends included, or a comma list; the suite names of eval_lib, such as
-`small_eval`, work too). The PRNG streams differ (threefry against Philox),
-so the two runs draw different episodes from the same laws.
+the same seed list (`--seeds`: `a-b`, both ends included, or a comma list;
+the suite names of eval_lib, such as `small_eval`, work too) in consecutive
+batches of `BATCH_SIZE` seeds, each an `evaluate_batched` call of its own:
+a JAX batch of 100 pixel envs at 512^2 holds ~38 GB on the CPU, one of 20
+~9 GB. The PRNG streams differ (threefry against Philox), so the two runs
+draw different episodes from the same laws.
 
 The evaluators' budget is simulated seconds plus the batch's wall clock
 (600 s). A CPU takes seconds a step where the card takes milliseconds, so
@@ -19,7 +25,8 @@ the budget. Each worker writes its per-episode results and seconds per step
 as JSON under `--out_dir`; the parent prints, for each package, the success
 rate with its binomial standard error and the average actions to goal (over
 the episodes that reached it) with its standard error, then the two-sided z
-of the success difference.
+of the success difference and of the actions difference. The report always
+pairs the two workers of one invocation.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import time
 import types
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BATCH_SIZE = 20
 
 
 def parse_seeds(text: str):
@@ -55,13 +63,26 @@ def _stopped_clock(eval_lib) -> None:
 
 
 def _jax_results(experiment_name, seeds, step_limit):
+  import numpy as np
+
+  from putting_dune_tpu import eval as eval_cli
   from putting_dune_tpu import eval_lib
+  from putting_dune_tpu import run_helpers
   from putting_dune_tpu.experiments import registry
 
   _stopped_clock(eval_lib)
-  experiment = registry.create_multi_dopant_experiment(experiment_name)
-  env = experiment.make_env(len(seeds), step_limit=step_limit)
-  policy = experiment.get_agent(None, None).policy()
+  if experiment_name in registry.multi_dopant_experiment_names():
+    experiment = registry.create_multi_dopant_experiment(experiment_name)
+    env = experiment.make_env(len(seeds), step_limit=step_limit)
+    policy = experiment.get_agent(None, None).policy()
+  else:
+    experiment = registry.create_eval_experiment(experiment_name)
+    agent = experiment.get_agent(np.random.default_rng(0),
+                                 experiment.get_adapters_and_goal())
+    env = run_helpers.create_batched_env(
+        experiment.get_adapters_and_goal, experiment.get_simulator_config,
+        batch_size=len(seeds), step_limit=step_limit)
+    policy = eval_cli._policy_for_agent(agent, env)  # pylint: disable=protected-access
   return eval_lib.evaluate_batched(env, policy, seeds)
 
 
@@ -69,20 +90,34 @@ def _torch_results(experiment_name, seeds, step_limit):
   from putting_dune_torch import eval as eval_cli
   from putting_dune_torch import eval_lib
   from putting_dune_torch import registry
+  from putting_dune_torch import run_helpers
 
   _stopped_clock(eval_lib)
-  experiment = registry.create_multi_dopant_experiment(experiment_name)
-  env = experiment.make_env(len(seeds), step_limit=step_limit, device='cpu')
-  policy = eval_cli.policy_for_agent(experiment.get_agent(env.device))
+  if experiment_name in registry.multi_dopant_experiment_names():
+    experiment = registry.create_multi_dopant_experiment(experiment_name)
+    env = experiment.make_env(len(seeds), step_limit=step_limit,
+                              device='cpu')
+    policy = eval_cli.policy_for_agent(experiment.get_agent(env.device))
+  else:
+    experiment = registry.create_eval_experiment(experiment_name)
+    adapters_and_goal = experiment.get_adapters_and_goal()
+    env = run_helpers.create_batched_env(
+        experiment.get_adapters_and_goal, experiment.get_simulator_config,
+        batch_size=len(seeds), step_limit=step_limit, device='cpu')
+    policy = eval_cli.policy_for_agent(
+        experiment.get_policy(adapters_and_goal, env.device))
   return eval_lib.evaluate_batched(env, policy, seeds)
 
 
 def worker(package, experiment_name, seeds, step_limit, out_path) -> None:
   t0 = time.perf_counter()
   run = _jax_results if package == 'jax' else _torch_results
-  results = run(experiment_name, seeds, step_limit)
+  results, steps = [], 0
+  for i in range(0, len(seeds), BATCH_SIZE):
+    batch = run(experiment_name, seeds[i:i + BATCH_SIZE], step_limit)
+    results += batch
+    steps += max(r.num_actions_taken for r in batch)
   seconds = time.perf_counter() - t0
-  steps = max(r.num_actions_taken for r in results)
   with open(out_path, 'w') as f:
     json.dump({
         'package': package,
@@ -133,16 +168,23 @@ def main(argv=None) -> None:
            out_path(args.worker))
     return
 
-  report = {'experiment': args.experiment_name, 'seeds': args.seeds}
+  workers = {}
   for package in ('jax', 'torch'):
+    if os.path.exists(out_path(package)):
+      os.remove(out_path(package))
     env = dict(os.environ, PYTHONPATH=ROOT)
     if package == 'jax':
       env['JAX_PLATFORMS'] = 'cpu'
-    subprocess.run(
+    workers[package] = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), f'--worker={package}',
          f'--experiment_name={args.experiment_name}', f'--seeds={args.seeds}',
          f'--step_limit={args.step_limit}', f'--out_dir={args.out_dir}'],
-        env=env, check=True)
+        env=env)
+  failed = [p for p, w in workers.items() if w.wait() != 0]
+  if failed:
+    sys.exit(f'worker(s) {failed} failed')
+  report = {'experiment': args.experiment_name, 'seeds': args.seeds}
+  for package in ('jax', 'torch'):
     with open(out_path(package)) as f:
       run = json.load(f)
     report[package] = dict(summary(run['results']), seconds=run['seconds'],
@@ -152,6 +194,9 @@ def main(argv=None) -> None:
   se = math.hypot(a['success_se'], b['success_se'])
   report['success_z'] = ((b['success'] - a['success']) / se if se > 0
                          else 0.0)
+  se = math.hypot(a['average_actions_se'], b['average_actions_se'])
+  report['actions_z'] = ((b['average_actions'] - a['average_actions']) / se
+                         if se > 0 else 0.0)
   print(json.dumps(report), flush=True)
 
 

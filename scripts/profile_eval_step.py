@@ -5,15 +5,18 @@
 
 Runs the experiment (default `ppo_simple_images_tf`, at the 512^2 render;
 a multi-dopant name such as `multi_dopant_3_vision_planner` or
-`multi_dopant_3_planner` runs the D-dopant env at its own frame size) for
+`multi_dopant_3_planner` runs the D-dopant env at its own frame size; a
+drift-corrected one carries its policy state as the eval loop does) for
 --steps env steps after a warm-up, three ways:
 
   1. plain: host wall clock per step (policy + env.step), synchronized;
   2. sections: the same loop with the KMC, the render (splat + noise +
-     CLAHE), the atom window and the policy wrapped in synchronized
-     timers (the synchronizes add host time; the split is what counts);
-  3. torch.profiler over the plain loop: device time by kernel name and
-     the device busy share (summed kernel time / wall time).
+     CLAHE), the atom window, the policy and, inside it, the drift
+     corrector's phase correlation wrapped in synchronized timers (the
+     synchronizes add host time; the split is what counts);
+  3. torch.profiler over the plain loop: device time by kernel name, the
+     device busy share (summed kernel time / wall time) and the FFT
+     kernels' share of the device time.
 """
 
 from __future__ import annotations
@@ -31,10 +34,12 @@ def main(argv=None) -> None:
   import torch
 
   from putting_dune_torch import eval as eval_cli
+  from putting_dune_torch import eval_lib
   from putting_dune_torch import kmc
   from putting_dune_torch import registry
   from putting_dune_torch import run_helpers
   from putting_dune_torch import simulator
+  from putting_dune_torch.agents import drift_correction
   from putting_dune_torch.env import env as env_lib
   from putting_dune_torch.imaging import render
 
@@ -62,14 +67,22 @@ def main(argv=None) -> None:
         exp.get_adapters_and_goal, exp.get_simulator_config,
         batch_size=args.batch, device=dev)
   gen = env_lib.make_generator(0, dev)
+  carry = {}
+
+  def act(ts):
+    carry['pstate'], action = carry['step'](carry['pstate'], gen,
+                                            ts.observation, ts.first())
+    return action
 
   def run(n, state, ts):
     for _ in range(n):
-      state, ts = env.step(state, policy(gen, ts.observation), gen)
+      state, ts = env.step(state, act(ts), gen)
     return state, ts
 
   with torch.inference_mode():
     state, ts = env.reset(gen)
+    carry['pstate'], carry['step'] = eval_lib.policy_stepper(
+        policy, ts.observation)
     state, ts = run(5, state, ts)  # warm-up
     sync()
 
@@ -98,28 +111,33 @@ def main(argv=None) -> None:
     # Both envs reach these through the modules' attributes; the D-dopant
     # env's atom window is a method.
     originals = (kmc.apply_control, kmc.apply_control_multi,
-                 render.render_stem_image, simulator.atom_window)
+                 render.render_stem_image, simulator.atom_window,
+                 drift_correction.estimate_content_shift_px)
+    drift_correction.estimate_content_shift_px = timed(
+        'phase correlation', drift_correction.estimate_content_shift_px)
     kmc.apply_control = timed('kmc', kmc.apply_control)
     kmc.apply_control_multi = timed('kmc', kmc.apply_control_multi)
     render.render_stem_image = timed('render', render.render_stem_image)
     simulator.atom_window = timed('atom_window', simulator.atom_window)
     if multi:
       env._atom_window = timed('atom_window', env._atom_window)
-    timed_policy = timed('policy', policy)
+    timed_act = timed('policy', act)
     sync()
     t0 = time.perf_counter()
     for _ in range(args.steps):
-      action = timed_policy(gen, ts.observation)
+      action = timed_act(ts)
       state, ts = timed('env.step', env.step)(state, action, gen)
     sync()
     total = time.perf_counter() - t0
     (kmc.apply_control, kmc.apply_control_multi, render.render_stem_image,
-     simulator.atom_window) = originals
+     simulator.atom_window,
+     drift_correction.estimate_content_shift_px) = originals
     if multi:
       del env._atom_window
     print(f'sections (synchronized), per env step, total '
           f'{total / args.steps * 1e3:.3f} ms:', flush=True)
-    for name in ('policy', 'env.step', 'kmc', 'render', 'atom_window'):
+    for name in ('policy', 'phase correlation', 'env.step', 'kmc', 'render',
+                 'atom_window'):
       print(f'  {name}: {totals[name] / args.steps * 1e3:.3f} ms '
             f'({counts[name]} calls)', flush=True)
 
@@ -143,9 +161,16 @@ def main(argv=None) -> None:
     kernels = [e for e in events if e.key and not e.key.startswith('aten::')
                and not e.key.startswith('cuda') and e.key not in overhead]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    fft_kernels = [e for e in kernels if 'fft' in e.key.lower()]
+    fft = sum(e.self_device_time_total for e in fft_kernels) / 1e6
     print(f'profiler: wall {wall / args.steps * 1e3:.3f} ms per step, '
           f'device busy {busy / args.steps * 1e3:.3f} ms per step, '
-          f'busy share {busy / wall:.3f}', flush=True)
+          f'busy share {busy / wall:.3f}; FFT kernels '
+          f'{fft / args.steps * 1e3:.4f} ms per step, '
+          f'{fft / max(busy, 1e-12):.4f} of the device time', flush=True)
+    for e in fft_kernels:
+      print(f'  FFT kernel: {e.self_device_time_total / args.steps:.3f} us/step '
+            f'{e.count / args.steps:.1f} calls/step  {e.key[:90]}', flush=True)
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in kernels[:25]:
       print(f'  {e.self_device_time_total / 1e3 / args.steps:9.4f} ms/step '

@@ -224,8 +224,16 @@ def test_reset_laws_match_jax():
 
 
 def test_drift_raises():
-  with pytest.raises(NotImplementedError, match='drift'):
-    t_sim.SimulatorConfig(drift_per_frame_angstroms=0.5)
+  # A drift config is accepted: reset starts every row at zero drift, and
+  # one step moves each row's drift by at most d per axis.
+  config = t_sim.SimulatorConfig(drift_per_frame_angstroms=0.5)
+  gen = torch.Generator().manual_seed(0)
+  state, _ = t_sim.reset(gen, T_LAT, config=config, batch_size=64)
+  assert float(state.drift.abs().max()) == 0.0
+  control = t_struct.BeamControl(torch.full((64, 2), 0.5), torch.zeros(64))
+  state, _, _ = t_sim.step(state, gen, control, T_LAT,
+                           t_rates.simple_canonical_rates, config=config)
+  assert 0.0 < float(state.drift.abs().max()) <= 0.5
 
 
 def test_entry_points_default_to_cuda():

@@ -395,8 +395,9 @@ def test_specs_match_jax():
 def test_env_rejects_what_is_not_ported_or_unknown():
   kwargs = dict(lattice=T_LATTICE_20, rate_fn=t_rates.simple_canonical_rates,
                 device='cpu')
-  with pytest.raises(NotImplementedError, match='drift'):
-    t_md.MultiDopantEnv(drift_per_frame_angstroms=0.5, **kwargs)
+  # Drift is ported: a drift env builds (it raised before).
+  assert t_md.MultiDopantEnv(drift_per_frame_angstroms=0.5,
+                             **kwargs).drift_per_frame_angstroms == 0.5
   for field in ('action_mode', 'observation_mode', 'anchor_order'):
     with pytest.raises(ValueError, match=field):
       t_md.MultiDopantEnv(**{field: 'nonsense'}, **kwargs)
@@ -631,9 +632,10 @@ def test_load_policy_refuses_a_checkpoint_that_does_not_fit_its_arch(tmp_path):
 
 
 def test_registry_names_equal_jax_less_the_drift_entries():
-  want = [n for n in j_registry.multi_dopant_experiment_names()
-          if 'drift' not in n]
-  assert len(want) == 12
+  # The names equal the JAX registry's, all fourteen, drift entries
+  # included, and each env is configured as the JAX one.
+  want = list(j_registry.multi_dopant_experiment_names())
+  assert len(want) == 14
   assert sorted(t_registry.multi_dopant_experiment_names()) == sorted(want)
   for name in want:
     t_exp = t_registry.create_multi_dopant_experiment(name)
@@ -646,12 +648,13 @@ def test_registry_names_equal_jax_less_the_drift_entries():
                   'fov_width', 'step_limit', 'sticky_goals', 'action_mode',
                   'max_distance_angstroms', 'observation_mode', 'anchor_order',
                   'image_size', 'window_capacity', 'noisy_images',
-                  'include_fov', 'max_kmc_events_per_step'):
+                  'drift_per_frame_angstroms', 'include_fov',
+                  'max_kmc_events_per_step'):
       assert getattr(t_envir, field) == getattr(j_envir, field), (name, field)
     assert t_envir.lattice.num_atoms == j_envir.lattice.num_atoms
   with pytest.raises(ValueError, match='Unknown'):
     t_registry.create_multi_dopant_experiment(
-        'multi_dopant_2_vision_planner_drift')
+        'multi_dopant_5_vision_planner_drift')
 
 
 def test_evaluate_batched_reads_the_step_limit_of_either_env():
