@@ -76,7 +76,22 @@ Phases (any failure exits non-zero before the final line):
       launched). Each corrected entry reaches `DRIFT_SUCCESS_BARS` (the JAX
       package's CPU success less three binomial standard errors), and the
       multi-dopant corrected entry succeeds more often than its twin;
-  17. a `kernels` JSON line; 18. the result JSON line, last.
+  17. the rate stack: the shipped rate predictor on CUDA against the same
+      function on the CPU at the planner's 64,000 rows (max |d| <= 1e-5)
+      and correlated above 0.95 with `prior_rates_aligned` (the JAX test's
+      bar); the fifteen runnable entries of the rate stack, each on small_eval
+      through the eval entry point, at or above `RATE_STACK_BARS` (the JAX
+      package's CPU success less three binomial standard errors, where that
+      is above 0.1), the two vision entries launching `noise_chain`,
+      `clahe_hist_lut` and `clahe_remap`, and
+      `planner_distilled_prior_variable_time` raising FileNotFoundError;
+      the trainer at the shipped widths (50 models, hidden (128, 128), batch
+      256, batch norm, augmentation, bootstrap) for 3 epochs on 40,960
+      synthetic prior transitions made on the card, its loss on the data
+      below the loss at initialisation for every model; distillation at
+      batch 4096 (20 epochs of 10 batches); a save -> load round trip equal
+      on the card; the 2-model argmax-recovery probe (>= 2 of 3);
+  18. a `kernels` JSON line; 19. the result JSON line, last.
 
 It imports nothing of JAX or of putting_dune_tpu (the shipped weights are
 read as data).
@@ -140,6 +155,45 @@ DRIFT_SUCCESS_BARS = {
     'vision_planner_drift_corrected': 0.99 - 3 * 0.00995,
     'multi_dopant_2_vision_planner_drift_corrected': 0.92 - 3 * 0.0271,
 }
+
+# The JAX package's success on small_eval of each entry the rate stack adds,
+# both packages on the CPU on the same 100 seeds
+# (`scripts/eval_cpu_pair.py --seeds=small_eval`).
+RATE_STACK_JAX_SUCCESS = {
+    'relative_random_prior_rates': 0.05,
+    'planner_prior_rates': 1.0,
+    'greedy_prior_rates': 0.01,
+    'planner_learned_rates': 1.0,
+    'planner_prior_rates_variable_time': 1.0,
+    'planner_distilled_prior': 0.99,
+    'greedy_aligned_prior_rates': 1.0,
+    'vision_planner_prior_rates': 1.0,
+    'vision_planner_learned_rates': 0.99,
+    'eval_ppo_learned_tf_2s': 1.0,
+    'eval_ppo_learned_tf_3s': 1.0,
+    'eval_ppo_learned_tf_4s': 1.0,
+    'eval_ppo_v3_2s': 0.99,
+    'eval_ppo_v3_3s': 1.0,
+    'eval_ppo_v3_4s': 1.0,
+}
+
+
+def success_bar(p: float, n: int = 100):
+  """p less three binomial standard errors at n episodes, or None where
+  that is not above 0.1. At p = 0 or 1, where the plug-in error
+  sqrt(p (1 - p) / n) is 0, the Agresti-Coull one (p~ = (x + 2) / (n + 4)
+  over n + 4 trials)."""
+  if 0.0 < p < 1.0:
+    se = (p * (1.0 - p) / n) ** 0.5
+  else:
+    q = (p * n + 2.0) / (n + 4.0)
+    se = (q * (1.0 - q) / (n + 4.0)) ** 0.5
+  bar = p - 3.0 * se
+  return bar if bar > 0.1 else None
+
+
+RATE_STACK_BARS = {name: success_bar(p)
+                   for name, p in RATE_STACK_JAX_SUCCESS.items()}
 
 # The pallas_call sites each kernel covers (file:line, further lines of
 # the same file after commas).
@@ -320,6 +374,204 @@ def sass_summary(path: str, nvcc: str) -> list[str]:
     lines.append(f'{short.group(0) if short else name[-40:]}: '
                  f'{sum(ops.values())} instructions, {groups}')
   return lines
+
+
+def rate_stack(dev, run_eval, eval_reports, path_launches) -> dict:
+  """Phase 17 (see the module docstring); returns the numbers it read."""
+  import dataclasses
+  import math
+  import tempfile
+
+  import numpy as np
+  import torch
+
+  from putting_dune_torch import eval as eval_cli
+  from putting_dune_torch import rates as rates_lib
+  from putting_dune_torch.agents import eval_agent
+  from putting_dune_torch.rate_learning import config as rl_config
+  from putting_dune_torch.rate_learning import data_utils as rl_data
+  from putting_dune_torch.rate_learning import losses as rl_losses
+  from putting_dune_torch.rate_learning import predictor as rl_predictor
+
+  out = {}
+  # -- the shipped predictor, card against CPU, at the planner's rows --------
+  shipped = os.path.join(eval_agent.MODEL_WEIGHTS_DIR, 'rate_predictor')
+  preds = {}
+  for key, device in (('card', dev), ('cpu', torch.device('cpu'))):
+    preds[key] = rl_predictor.LearnedRatePredictor(
+        config=rl_config.RateLearningConfig(beam_units='angstroms'),
+        device=device)
+    preds[key].load(shipped)
+  gen = torch.Generator().manual_seed(7)
+  n = 100 * 640  # batch 100 x the planner's 10 x 64 candidate beams
+  si = torch.randn((n, 2), generator=gen) * 4.0
+  angle = (torch.rand((n, 1), generator=gen) * 2.0 * math.pi
+           + torch.tensor([0.0, 2.0 * math.pi / 3.0, 4.0 * math.pi / 3.0]))
+  nbr = si[:, None, :] + 1.42 * torch.stack(
+      [torch.cos(angle), torch.sin(angle)], dim=-1)
+  beam = si + torch.rand((n, 2), generator=gen) * 3.6 - 1.8
+  want = preds['cpu'].as_rate_function()(si, nbr, beam)
+  rate_fn = preds['card'].as_rate_function()
+  on_card = [t.to(dev) for t in (si, nbr, beam)]
+  got = rate_fn(*on_card)
+  torch.cuda.synchronize()
+  err = float((got.cpu() - want).abs().max())
+  # The JAX test's probe: 512 beams in [-1.8, 1.8]^2 around a canonical
+  # silicon, against the aligned prior the model was trained from.
+  k = 512
+  canon = 1.42 * torch.tensor([[1.0, 0.0], [-0.5, 3 ** 0.5 / 2],
+                               [-0.5, -(3 ** 0.5) / 2]], device=dev)
+  probe = [torch.zeros((k, 2), device=dev), canon.expand(k, 3, 2),
+           torch.rand((k, 2), generator=gen).to(dev) * 3.6 - 1.8]
+  learned = rate_fn(*probe).flatten()
+  analytic = rates_lib.prior_rates_aligned(*probe).flatten()
+  corr = float(torch.corrcoef(torch.stack([learned, analytic]))[0, 1])
+  t_learned = time_ms(lambda: rate_fn(*on_card))
+  t_aligned = time_ms(lambda: rates_lib.prior_rates_aligned(*on_card))
+  print(f'rate stack: shipped predictor at ({n}, 3) rows: card against CPU '
+        f'max|d| = {err:.3g}; correlation with prior_rates_aligned at {k} '
+        f'beams {corr:.4f}; the learned rate function {t_learned:.4f} ms '
+        f'per call, prior_rates_aligned {t_aligned:.4f} ms', flush=True)
+  check(err <= 1e-5, f'shipped predictor: card against CPU {err}')
+  check(corr > 0.95, f'shipped predictor correlation {corr}')
+  out.update(predictor_max_abs_err=err, predictor_correlation=corr,
+             learned_rate_fn_ms=t_learned, prior_rates_aligned_ms=t_aligned)
+  del preds, want, got, on_card
+
+  # -- the entries on small_eval -------------------------------------------------
+  for name, bar in RATE_STACK_BARS.items():
+    counted = run_eval(name, 0.0 if bar is None else bar, path='rate stack')
+    rep = eval_reports[name]
+    out[name] = {
+        'success': rep['aggregate']['average_num_times_reached_goal'],
+        'actions': rep['aggregate']['average_num_actions_taken'],
+        'bar': bar,
+        'ms_per_step': 1e3 * rep['wall_seconds'] * 100 / rep['env_steps']}
+    if name.startswith('vision_'):
+      path_launches[f'{name}_512'] = counted
+      for kernel in ('noise_chain', 'clahe_hist_lut', 'clahe_remap'):
+        check(counted[kernel] > 0, f'{kernel} was not launched on {name}')
+      for kernel in ('splat_render', 'clahe_interp', 'clahe_small'):
+        check(counted[kernel] == 0, f'{kernel} launched on a default route')
+  try:
+    eval_cli.main(eval_cli.Args(
+        experiment_name='planner_distilled_prior_variable_time',
+        eval_suite='tiny_eval', device='cuda'))
+  except FileNotFoundError as e:
+    print(f'rate stack: planner_distilled_prior_variable_time raises '
+          f'FileNotFoundError ({e})', flush=True)
+  else:
+    fail('planner_distilled_prior_variable_time ran without its checkpoint')
+
+  # -- the trainer at the shipped widths -----------------------------------------
+  with open(os.path.join(shipped, 'config.json')) as f:
+    stored = json.load(f)
+  stored.pop('num_models_current')
+  stored['hidden_dimensions'] = tuple(stored['hidden_dimensions'])
+  # Synthetic positions are in bond lengths.
+  config = dataclasses.replace(rl_config.RateLearningConfig(**stored),
+                               epochs=3, beam_units='bonds')
+  gen = torch.Generator(device=dev).manual_seed(0)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  data, _ = rl_data.generate_synthetic_data(num_data=40_960, generator=gen,
+                                            device=dev)
+  torch.cuda.synchronize()
+  t_data = time.perf_counter() - t0
+  predictor = rl_predictor.LearnedRatePredictor(config=config, device=dev,
+                                                seed=0)
+  rows = slice(0, 16_384)
+  probe_rows = (data['next_state'][rows].long(), data['dt'][rows],
+                data['next_state'][rows] != 0,
+                torch.cat([data['context'], data['position']], -1)[rows])
+
+  def data_loss():
+    with torch.no_grad():
+      loss, _ = rl_losses.batched_loss_fn(predictor.model, *probe_rows,
+                                          is_training=False)
+    return loss.cpu()
+
+  loss_init = data_loss()
+  marks = []
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  metrics = predictor.train(
+      data, epoch_chunk=1,
+      progress=lambda done, last: marks.append(time.perf_counter()))
+  loss_after = data_loss()
+  steps = (len(data['dt']) * 6) // config.batch_size
+  epoch_s = [b - a for a, b in zip(marks[:-1], marks[1:])]
+  first_s = marks[0] - t0
+  ms_step = 1e3 * statistics.mean(epoch_s) / steps
+  train_loss = metrics['train_loss']
+  print(f'rate stack trainer: {config.num_models} models, hidden '
+        f'{config.hidden_dimensions}, batch {config.batch_size}, 40960 '
+        f'transitions made on the card in {t_data:.2f} s (x6 augmented, '
+        f'bootstrapped: {steps} steps an epoch); epoch 1 {first_s:.2f} s '
+        f'(with the host splits and the copy to the card), epochs 2-3 '
+        f'{", ".join(f"{e:.3f}" for e in epoch_s)} s = {ms_step:.4f} ms a '
+        f'step, {1e3 / ms_step:.1f} steps/s; projected 500 epochs '
+        f'{500 * statistics.mean(epoch_s):.1f} s; loss on the data (mean '
+        f'over models) {float(loss_init.mean()):.4f} at initialisation -> '
+        f'{float(loss_after.mean()):.4f}; train loss by epoch '
+        f'{[round(float(v), 4) for v in train_loss.mean(0)]}', flush=True)
+  check(bool(torch.isfinite(loss_after).all())
+        and bool((loss_after < loss_init).all()),
+        'trainer: the loss did not fall for every model')
+  check(bool(train_loss[:, -1].mean() < float(loss_init.mean())),
+        'trainer: the train loss after epoch 3 is not below the loss at '
+        'initialisation')
+  out.update(trainer_ms_per_step=ms_step, trainer_epoch_s=epoch_s,
+             trainer_first_epoch_s=first_s,
+             trainer_loss_init=float(loss_init.mean()),
+             trainer_loss_after=float(loss_after.mean()))
+
+  # -- distillation at batch 4096 ------------------------------------------------
+  distill_config = rl_config.DistillConfig(batch_size=4096, epochs=20,
+                                           batches_per_epoch=10)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  history = predictor.distill(data, distill_config)['distill_loss']
+  ms_distill = 1e3 * (time.perf_counter() - t0) / 200
+  print(f'rate stack distillation: 20 epochs x 10 batches x 4096 in '
+        f'{ms_distill:.4f} ms a step; loss {history[0]:.3g} -> '
+        f'{history[-1]:.3g}', flush=True)
+  check(predictor.num_models == 1 and bool(np.isfinite(history).all()),
+        'distillation did not leave one model')
+  out['distill_ms_per_step'] = ms_distill
+
+  # -- save -> load on the card ----------------------------------------------------
+  with tempfile.TemporaryDirectory() as tmp:
+    predictor.save(tmp)
+    restored = rl_predictor.LearnedRatePredictor(device=dev)
+    restored.load(tmp)
+  x = torch.randn((4096, predictor.context_dim), generator=gen, device=dev)
+  same = torch.equal(predictor.apply_model(x), restored.apply_model(x))
+  print(f'rate stack save -> load: outputs equal {same}', flush=True)
+  check(same and restored.num_models == 1, 'save -> load round trip')
+
+  # -- the 2-model recovery probe -------------------------------------------------
+  probe_data, _ = rl_data.generate_synthetic_data(
+      num_data=2048, generator=gen, device=dev)
+  small = rl_predictor.LearnedRatePredictor(
+      config=rl_config.RateLearningConfig(batch_size=128, epochs=60,
+                                          num_models=2,
+                                          hidden_dimensions=(64, 64)),
+      device=dev, seed=5)
+  t0 = time.perf_counter()
+  small.train(probe_data)
+  hits = 0
+  for j in range(3):
+    a = 2.0 * math.pi * j / 3.0
+    x = torch.tensor([[0.0, 0.0, 0.85 * math.cos(a), 0.85 * math.sin(a)]],
+                     device=dev)
+    hits += int(int(torch.argmax(small.apply_model(x)[0])) == j)
+  print(f'rate stack recovery probe: {hits} of 3 argmaxes at the prior '
+        f'peaks (2 models x 60 epochs, {time.perf_counter() - t0:.2f} s)',
+        flush=True)
+  check(hits >= 2, f'recovery probe: {hits} of 3')
+  out['probe_hits'] = hits
+  return out
 
 
 def main() -> None:
@@ -814,9 +1066,10 @@ def main() -> None:
     check(a['average_num_times_reached_goal'] >= bar,
           f'{name} success below {bar}')
     eval_success[name] = a['average_num_times_reached_goal']
+    eval_reports[name] = rep
     return counted
 
-  eval_success = {}
+  eval_success, eval_reports = {}, {}
 
   counted = run_eval('vision_planner_simple_rates', 0.90)
   path_launches['vision_planner_512'] = counted
@@ -1069,7 +1322,11 @@ def main() -> None:
         > eval_success['multi_dopant_2_vision_planner_drift'],
         'the drift corrector does not raise the multi-dopant success')
 
-  # -- 17. kernels line --------------------------------------------------------
+  # -- 17. the rate stack --------------------------------------------------------
+  summary = rate_stack(dev, run_eval, eval_reports, path_launches)
+  print(f'rate stack summary: {json.dumps(summary)}', flush=True)
+
+  # -- 18. kernels line --------------------------------------------------------
   kernels = []
   for name, (ms, plain_ms, err, bound_ms, bound_by, source) in rows.items():
     by_path = {path: counts[name] for path, counts in path_launches.items()}

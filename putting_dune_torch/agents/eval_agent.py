@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from putting_dune_torch import device as device_lib
 from putting_dune_torch.agents import msgpack_reader
 from putting_dune_torch.agents import ppo
 
@@ -81,9 +82,10 @@ def mlp_from_flax(
   return model.eval()
 
 
-def load_policy(load_dir: str, device='cpu') -> nn.Module:
-  """Loads a saved policy directory as a module on `device`: an
-  ActorCritic for kind 'actor_critic', an MLPPolicy for kind 'mlp'."""
+def load_policy(load_dir: str, device=None) -> nn.Module:
+  """Loads a saved policy directory as a module on `device` (CUDA unless
+  asked otherwise; `device.resolve_device`): an ActorCritic for kind
+  'actor_critic', an MLPPolicy for kind 'mlp'."""
   with open(os.path.join(load_dir, 'policy.json')) as f:
     meta = json.load(f)
   arch = meta['arch']
@@ -101,7 +103,7 @@ def load_policy(load_dir: str, device='cpu') -> nn.Module:
   else:
     model = ppo.actor_critic_from_flax(
         params, image_size=arch.get('image_size', 128))
-  return model.to(device)
+  return model.to(device_lib.resolve_device(device))
 
 
 def mean_policy(model: nn.Module):

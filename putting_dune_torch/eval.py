@@ -7,8 +7,13 @@ Experiments: relative_random_simple, greedy_simple_rates,
 ppo_simple_images_tf, planner_simple_rates, vision_planner_simple_rates;
 under instrument drift planner_simple_drift, ppo_simple_drift,
 planner_simple_drift_variable_time, planner_simple_drift_frame_dwell,
-vision_planner_drift and vision_planner_drift_corrected; and the
-multi-dopant ones (registry.multi_dopant_experiment_names():
+vision_planner_drift and vision_planner_drift_corrected; the rate
+stack's relative_random_prior_rates, planner_prior_rates{,_variable_time},
+greedy_{,aligned_}prior_rates, planner_learned_rates,
+planner_distilled_prior{,_variable_time} (the latter's checkpoint is not
+shipped), vision_planner_{prior,learned}_rates and
+eval_ppo_{learned_tf,v3}_{2,3,4}s (registry.eval_experiment_names()); and
+the multi-dopant ones (registry.multi_dopant_experiment_names():
 multi_dopant_{2,3,4}_planner, multi_dopant_{2,3,4}_random,
 multi_dopant_{2,3}_{ppo,distilled,vision_planner},
 multi_dopant_2_vision_planner_drift{,_corrected}).

@@ -1,12 +1,13 @@
-"""Named eval experiments (port of part of
+"""Named eval experiments (port of
 putting_dune_tpu/experiments/registry.py).
 
-Same names and compositions as the JAX package for the experiments
-ported so far. An experiment's `get_policy(adapters_and_goal, device)`
-returns a batched policy `(gen, observation) -> action`, or an agent whose
-`policy()` gives one (eval.py `policy_for_agent`). The multi-dopant
-experiments carry an env factory and, unless the policy is uniform random,
-a `get_agent(device)` with the same kind of result.
+The same names and compositions as the JAX package: all of its
+single-dopant eval experiments and all of its multi-dopant ones. An
+experiment's `get_policy(adapters_and_goal, device)` returns a batched
+policy `(gen, observation) -> action`, or an agent whose `policy()` gives
+one (eval.py `policy_for_agent`). The multi-dopant experiments carry an
+env factory and, unless the policy is uniform random, a
+`get_agent(device)` with the same kind of result.
 """
 
 from __future__ import annotations
@@ -75,6 +76,22 @@ def _checkpoint_policy(model_name: str):
   return get_policy
 
 
+def _load_shipped_rate_fn(device):
+  """The shipped distilled neural rate model as a RateFunction on
+  `device`; raises FileNotFoundError when the artifact is absent."""
+  from putting_dune_torch.rate_learning import config as rl_config
+  from putting_dune_torch.rate_learning import predictor as predictor_lib
+
+  workdir = os.path.join(eval_agent.MODEL_WEIGHTS_DIR, 'rate_predictor')
+  if not os.path.isdir(workdir):
+    raise FileNotFoundError(f'No shipped rate predictor at {workdir}.')
+  predictor = predictor_lib.LearnedRatePredictor(
+      config=rl_config.RateLearningConfig(beam_units='angstroms'),
+      device=device)
+  predictor.load(workdir)
+  return predictor.as_rate_function()
+
+
 def _planner_agent(adapters_and_goal, device, rate_fn=None,
                     lookahead_discount=0.0, dwell_objective='per_second'):
   """Rate-aware planner; its dwell (or dwell range) is the adapter's, so
@@ -94,8 +111,21 @@ def _planner_agent(adapters_and_goal, device, rate_fn=None,
   )
 
 
+def _learned_planner_agent(adapters_and_goal, device):
+  """The planner over the shipped distilled neural rate model: simulate ->
+  learn rates -> plan with the learned model."""
+  adapter = adapters_and_goal.action_adapter
+  return planner_lib.PlannerAgent(
+      rate_fn=_load_shipped_rate_fn(device),
+      dwell_seconds=float(adapter.min_dwell_seconds),
+  )
+
+
 def _vision_planner_agent(adapters_and_goal, device, rate_fn=None):
-  """Shipped detector -> lattice geometry -> planner."""
+  """Shipped detector -> lattice geometry -> planner; rate_fn='learned'
+  plans with the shipped distilled neural rate model."""
+  if rate_fn == 'learned':
+    rate_fn = _load_shipped_rate_fn(device)
   adapter = adapters_and_goal.action_adapter
   return vision_planner_lib.VisionPlannerAgent(
       rate_fn=(rate_fn if rate_fn is not None
@@ -119,9 +149,14 @@ def _drift_corrected_vision_planner_agent(adapters_and_goal, device):
   )
 
 
-def _single_silicon_goal_reaching():
+def _single_silicon_goal_reaching(min_dwell_seconds=1.5, max_dwell_seconds=1.5,
+                                  max_distance_angstroms=BOND):
+  """Microscope-frame relative adapter + the 10-dim vector features."""
   return AdaptersAndGoal(
-      action_adapter=action_adapters.RelativeToSiliconActionAdapter(),
+      action_adapter=action_adapters.RelativeToSiliconActionAdapter(
+          min_dwell_seconds=min_dwell_seconds,
+          max_dwell_seconds=max_dwell_seconds,
+          max_distance_angstroms=max_distance_angstroms),
       feature_constructor=features_lib.SingleSiliconPristineGrapheneFeatures(),
   )
 
@@ -163,6 +198,16 @@ def _simple_rates_config():
                        image_duration_seconds=2.0)
 
 
+def _human_prior_rates_config():
+  return SimulatorSpec(rate_fn=rates_lib.prior_rates,
+                       image_duration_seconds=2.0)
+
+
+def _aligned_prior_rates_config():
+  return SimulatorSpec(rate_fn=rates_lib.prior_rates_aligned,
+                       image_duration_seconds=2.0)
+
+
 def _simple_rates_drift_config():
   """Simple rates + cumulative instrument drift. 0.5 A per frame per axis
   keeps the worst per-step increment (0.71 A diagonal) below half the
@@ -181,11 +226,22 @@ _drift_from_pixels = functools.partial(
     include_fov=True)
 
 
+# The vision planners' adapters: image features at 256^2, the detector's
+# training size; 5 s dwell like the other planners.
+_vision_from_pixels = functools.partial(
+    _single_silicon_from_pixels, min_dwell_seconds=5.0,
+    max_dwell_seconds=5.0, max_distance_angstroms=2 * BOND, image_size=256)
+
 _EVAL_EXPERIMENTS = {
     'relative_random_simple': EvalExperiment(
         get_policy=_random_policy,
         get_adapters_and_goal=_single_silicon_goal_reaching,
         get_simulator_config=_simple_rates_config,
+    ),
+    'relative_random_prior_rates': EvalExperiment(
+        get_policy=_random_policy,
+        get_adapters_and_goal=_single_silicon_goal_reaching,
+        get_simulator_config=_human_prior_rates_config,
     ),
     'ppo_simple_images_tf': EvalExperiment(
         get_policy=_checkpoint_policy('ppo_simple_images_tf'),
@@ -203,15 +259,72 @@ _EVAL_EXPERIMENTS = {
         get_adapters_and_goal=_material_frame,
         get_simulator_config=_simple_rates_config,
     ),
-    # Pixels to control with no policy learning: image features at 256^2,
-    # the detector's training size; 5 s dwell like the other planners.
+    'planner_prior_rates': EvalExperiment(
+        get_policy=functools.partial(
+            _planner_agent, rate_fn=rates_lib.prior_rates),
+        get_adapters_and_goal=_material_frame,
+        get_simulator_config=_human_prior_rates_config,
+    ),
+    'greedy_prior_rates': EvalExperiment(
+        get_policy=_greedy_policy,
+        get_adapters_and_goal=_material_frame,
+        get_simulator_config=_human_prior_rates_config,
+    ),
+    # Model-based control with the learned dynamics model: the simulator
+    # runs the aligned prior, the planner plans with the shipped distilled
+    # neural predictor trained on data simulated from that law.
+    'planner_learned_rates': EvalExperiment(
+        get_policy=_learned_planner_agent,
+        get_adapters_and_goal=_material_frame,
+        get_simulator_config=_aligned_prior_rates_config,
+    ),
+    # The planner also picks the dwell each step, maximizing expected
+    # progress per simulated second (a third action dim).
+    'planner_prior_rates_variable_time': EvalExperiment(
+        get_policy=functools.partial(
+            _planner_agent, rate_fn=rates_lib.prior_rates),
+        get_adapters_and_goal=_material_frame_variable_dwell,
+        get_simulator_config=_human_prior_rates_config,
+    ),
+    # The planner distilled into a feed-forward MLP (shipped), and its
+    # variable-dwell twin, whose checkpoint is not shipped.
+    'planner_distilled_prior': EvalExperiment(
+        get_policy=_checkpoint_policy('planner_distilled_prior'),
+        get_adapters_and_goal=_material_frame,
+        get_simulator_config=_human_prior_rates_config,
+    ),
+    'planner_distilled_prior_variable_time': EvalExperiment(
+        get_policy=_checkpoint_policy('planner_distilled_prior_variable_time'),
+        get_adapters_and_goal=_material_frame_variable_dwell,
+        get_simulator_config=_human_prior_rates_config,
+    ),
+    'greedy_aligned_prior_rates': EvalExperiment(
+        get_policy=_greedy_policy,
+        get_adapters_and_goal=_material_frame,
+        get_simulator_config=_aligned_prior_rates_config,
+    ),
+    # Pixels to control with no policy learning.
     'vision_planner_simple_rates': EvalExperiment(
         get_policy=_vision_planner_agent,
-        get_adapters_and_goal=functools.partial(
-            _single_silicon_from_pixels, min_dwell_seconds=5.0,
-            max_dwell_seconds=5.0, max_distance_angstroms=2 * BOND,
-            image_size=256),
+        get_adapters_and_goal=_vision_from_pixels,
         get_simulator_config=_simple_rates_config,
+    ),
+    # The vision planner under the aligned prior with the analytic model,
+    # which isolates perception error from learned-model error in the
+    # composition below.
+    'vision_planner_prior_rates': EvalExperiment(
+        get_policy=functools.partial(
+            _vision_planner_agent, rate_fn=rates_lib.prior_rates_aligned),
+        get_adapters_and_goal=_vision_from_pixels,
+        get_simulator_config=_aligned_prior_rates_config,
+    ),
+    # Both shipped learned artifacts in one controller: UNet perception and
+    # the distilled neural rate model as the planning model, against the
+    # aligned-prior simulator the rate model was trained on.
+    'vision_planner_learned_rates': EvalExperiment(
+        get_policy=functools.partial(_vision_planner_agent, rate_fn='learned'),
+        get_adapters_and_goal=_vision_from_pixels,
+        get_simulator_config=_aligned_prior_rates_config,
     ),
     # Under instrument drift. Vector features: the neighbor deltas are
     # translation invariant, so only the recorded goal vector goes stale.
@@ -258,6 +371,35 @@ _EVAL_EXPERIMENTS = {
         get_simulator_config=_simple_rates_drift_config,
     ),
 }
+
+
+# The shipped vector-policy checkpoints, each on the adapters of its
+# microscope experiment in the JAX registry (1.0-10.0 s dwell, or 1.5-20 s
+# at 3 bonds), under the human prior.
+_ZOO = {
+    'ppo_learned_tf_2s': ('230127_from_state_2s', (1.0, 10.0, BOND)),
+    'ppo_learned_tf_3s': ('230127_from_state_3s', (1.0, 10.0, BOND)),
+    'ppo_learned_tf_4s': ('230127_from_state_4s', (1.0, 10.0, BOND)),
+    'ppo_v3_2s': ('230422_ppo_v3_2s', (1.5, 20.0, 3 * BOND)),
+    'ppo_v3_3s': ('230422_ppo_v3_3s', (1.5, 20.0, 3 * BOND)),
+    'ppo_v3_4s': ('230422_ppo_v3_4s', (1.5, 20.0, 3 * BOND)),
+}
+_EVAL_EXPERIMENTS.update({
+    f'eval_{name}': EvalExperiment(
+        get_policy=_checkpoint_policy(checkpoint),
+        get_adapters_and_goal=functools.partial(
+            _single_silicon_goal_reaching, *adapter),
+        get_simulator_config=_human_prior_rates_config,
+    )
+    for name, (checkpoint, adapter) in _ZOO.items()
+})
+
+
+def register_eval_experiment(name: str, eval_experiment: EvalExperiment
+                             ) -> None:
+  """Adds an eval experiment if the name is not taken yet."""
+  if name not in _EVAL_EXPERIMENTS:
+    _EVAL_EXPERIMENTS[name] = eval_experiment
 
 
 def create_eval_experiment(name: str) -> EvalExperiment:

@@ -12,8 +12,11 @@ drift-corrected one carries its policy state as the eval loop does) for
   1. plain: host wall clock per step (policy + env.step), synchronized;
   2. sections: the same loop with the KMC, the render (splat + noise +
      CLAHE), the atom window, the policy and, inside it, the drift
-     corrector's phase correlation wrapped in synchronized timers (the
-     synchronizes add host time; the split is what counts);
+     corrector's phase correlation and the planner's rate model (the
+     learned one of `planner_learned_rates` and
+     `vision_planner_learned_rates`, or an analytic law) wrapped in
+     synchronized timers (the synchronizes add host time; the split is
+     what counts);
   3. torch.profiler over the plain loop: device time by kernel name, the
      device busy share (summed kernel time / wall time) and the FFT
      kernels' share of the device time.
@@ -56,13 +59,14 @@ def main(argv=None) -> None:
     if dev.type == 'cuda':
       torch.cuda.synchronize()
   multi = args.experiment_name in registry.multi_dopant_experiment_names()
+  agent = None
   if multi:
     env, policy = eval_cli._multi_dopant_env_and_policy(
         eval_cli.Args(experiment_name=args.experiment_name), args.batch, dev)
   else:
     exp = registry.create_eval_experiment(args.experiment_name)
-    policy = eval_cli.policy_for_agent(
-        exp.get_policy(exp.get_adapters_and_goal(), dev))
+    agent = exp.get_policy(exp.get_adapters_and_goal(), dev)
+    policy = eval_cli.policy_for_agent(agent)
     env = run_helpers.create_batched_env(
         exp.get_adapters_and_goal, exp.get_simulator_config,
         batch_size=args.batch, device=dev)
@@ -121,6 +125,10 @@ def main(argv=None) -> None:
     simulator.atom_window = timed('atom_window', simulator.atom_window)
     if multi:
       env._atom_window = timed('atom_window', env._atom_window)
+    # The planners read their rate model when they act.
+    rate_model = getattr(agent, 'rate_fn', None)
+    if rate_model is not None:
+      agent.rate_fn = timed('rate model', rate_model)
     timed_act = timed('policy', act)
     sync()
     t0 = time.perf_counter()
@@ -134,10 +142,12 @@ def main(argv=None) -> None:
      drift_correction.estimate_content_shift_px) = originals
     if multi:
       del env._atom_window
+    if rate_model is not None:
+      agent.rate_fn = rate_model
     print(f'sections (synchronized), per env step, total '
           f'{total / args.steps * 1e3:.3f} ms:', flush=True)
-    for name in ('policy', 'phase correlation', 'env.step', 'kmc', 'render',
-                 'atom_window'):
+    for name in ('policy', 'phase correlation', 'rate model', 'env.step',
+                 'kmc', 'render', 'atom_window'):
       print(f'  {name}: {totals[name] / args.steps * 1e3:.3f} ms '
             f'({counts[name]} calls)', flush=True)
 

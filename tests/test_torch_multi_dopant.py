@@ -71,6 +71,11 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
   sources = sorted((REPO / 'putting_dune_torch').rglob('*.py'))
   sources.append(REPO / 'chip_smoke.py')
   assert len(sources) > 30
+  names = {path.relative_to(REPO).as_posix() for path in sources}
+  for module in ('config', 'data_utils', 'distill', 'losses', 'model',
+                 'predictor', 'train', '__init__'):
+    assert f'putting_dune_torch/rate_learning/{module}.py' in names
+  assert 'putting_dune_torch/io/serialization.py' in names
   for path in sources:
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -99,3 +99,15 @@ def test_load_policy_rejects_unported_kinds(tmp_path):
   (tmp_path / 'policy.json').write_text('{"kind": "conv", "arch": {}}')
   with pytest.raises(NotImplementedError, match='conv'):
     t_eval_agent.load_policy(str(tmp_path))
+
+
+def test_load_policy_defaults_to_cuda():
+  # Without a device the loader resolves CUDA (device.resolve_device), so
+  # on a machine without a card it raises; the CPU is there when asked.
+  if torch.cuda.is_available():
+    assert next(t_eval_agent.load_policy(CKPT_DIR).parameters()).is_cuda
+  else:
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+      t_eval_agent.load_policy(CKPT_DIR)
+  model = t_eval_agent.load_policy(CKPT_DIR, device='cpu')
+  assert next(model.parameters()).device.type == 'cpu'
