@@ -14,10 +14,10 @@ Phases (any failure exits non-zero before the final line):
      |d| 0) to `hist_lut_order_exact`, the sums in the kernel's order;
   5. each kernel timed (CUDA events around one call, median of 30 launches:
      the wrapper's host time included) beside its twin and its bound;
-     `clahe_hist_lut`, `clahe_small`, `splat_render` and `clahe_interp`
-     also by their device time alone (CUPTI, `torch.profiler`, the mean
-     launch over a window of 20 calls whose every launch was recorded, of
-     up to three; else "not measured");
+     every kernel also by its device time alone (CUPTI, `torch.profiler`,
+     the mean launch over a window of 20 calls whose every launch was
+     recorded, of up to three; else "not measured"), here and at the other
+     shapes of phases 8, 11 and 12;
   6. the main path: `ppo_simple_images_tf` on small_eval (100 seeds, 512^2
      render) through the port's eval entry point on CUDA; success >= 0.95,
      average actions within 30.09 +- 6 (the JAX package's eval.json), every
@@ -91,7 +91,28 @@ Phases (any failure exits non-zero before the final line):
       below the loss at initialisation for every model; distillation at
       batch 4096 (20 epochs of 10 batches); a save -> load round trip equal
       on the card; the 2-model argmax-recovery probe (>= 2 of 3);
-  18. a `kernels` JSON line; 19. the result JSON line, last.
+  18. training, at the shipped configurations' widths (only the number of
+      updates cut): (a) vector PPO on `ppo_learned_2s` (batch 1024, rollout
+      64, 4 x 8 minibatches, hidden (256, 256)) from `PPO_VECTOR_SEED` for
+      `PPO_VECTOR_UPDATES` updates through `train_and_save` in two chunks
+      with a rolling
+      checkpoint; the loss finite, the terminal rate over updates 40-49 at
+      least twice that over 0-9 and at least `PPO_TERMINAL_RATE_BAR`; the
+      saved policy loaded and on small_eval at least `PPO_SUCCESS_BAR`;
+      (b) pixel PPO on `relative_simple_rates_from_images` (batch 256, 128^2
+      render, rollout 16, shaping 0.05) for 10 updates: `noise_chain` and
+      `clahe_small` launched once a rollout step and once for the reset,
+      the loss finite, the parameters moved; save -> load -> mean actions
+      in [-1, 1], a warm start holding the checkpoint exactly; 2 updates at
+      the 512^2 render launching `noise_chain`, `clahe_hist_lut` and
+      `clahe_remap` once a step and reset; (c) multi-dopant PPO (batch 1024,
+      2 dopants, dwell 5 s, rollout 64, shaping 0.05) for 5 updates, finite;
+      (d) DAgger as `planner_distilled_prior` was made (batch 1024, 12
+      iterations of 64 steps and 384 SGD steps of 4096): the student on
+      small_eval through the repo's ship gate (success >= 0.95, actions <=
+      1.5x the live `planner_prior_rates` of phase 17), save -> load acting
+      the same; each timed (seconds, env steps/s, gradient steps/s);
+  19. a `kernels` JSON line; 20. the result JSON line, last.
 
 It imports nothing of JAX or of putting_dune_tpu (the shipped weights are
 read as data).
@@ -195,6 +216,23 @@ def success_bar(p: float, n: int = 100):
 RATE_STACK_BARS = {name: success_bar(p)
                    for name, p in RATE_STACK_JAX_SUCCESS.items()}
 
+# Phase 18a trains `ppo_learned_2s` at the shipped widths for 50 of the
+# shipped run's 400 updates. Within 50 updates PPO at this config takes off
+# (terminal rate over updates 40-49 above 0.005) from 8 of 12 seeds in the
+# JAX package on the CPU and from 3 of 6 in the port on the card
+# (`scripts/train_seeds.py --package=jax|torch`, seeds 0-11 and 0-5); the
+# others stay below 2e-4. The smoke trains from seed 3, the first seed of
+# the port's census that took off (seed 0 did not).
+PPO_VECTOR_UPDATES = 50
+PPO_VECTOR_SEED = 3
+# The eight JAX runs that took off read a 40-49 terminal rate of 0.02411
+# (standard deviation 0.00515 over seeds; the shipped run, seed 0 on a TPU,
+# 0.0304 in runs/ppo_learned_2s/train_metrics.npz) and a small_eval success
+# of 0.8325. Bars: that rate less three standard deviations, and that
+# success less three binomial standard errors at 100 episodes.
+PPO_TERMINAL_RATE_BAR = 0.02411 - 3 * 0.00515
+PPO_SUCCESS_BAR = success_bar(0.8325)
+
 # The pallas_call sites each kernel covers (file:line, further lines of
 # the same file after commas).
 TPU_SITES = {
@@ -218,7 +256,9 @@ SOURCES = {name: f'putting_dune_torch/csrc/{name}.cu' for name in TPU_SITES}
 # template instantiation in full (`clahe_small_kernel<4, 8>(...)`): the
 # names here are matched as parts of it.
 KERNEL_NAMES = {
+    'noise_chain': ('noise_chain_kernel',),
     'clahe_hist_lut': ('clahe_hist_lut_kernel',),
+    'clahe_remap': ('clahe_remap_kernel',),
     'clahe_small': ('clahe_small_kernel',),
     'splat_render': ('splat_render_kernel',),
     'clahe_interp': ('clahe_interp_kernel',),
@@ -574,6 +614,250 @@ def rate_stack(dev, run_eval, eval_reports, path_launches) -> dict:
   return out
 
 
+def time_update(trainer, carry) -> tuple[float, float]:
+  """One more PPO update, its two phases timed apart (host clock around
+  synchronized work): ms per rollout step and ms per gradient step."""
+  import torch
+
+  config = trainer.config
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  traj, last_value = trainer.rollout(carry)
+  torch.cuda.synchronize()
+  t1 = time.perf_counter()
+  trainer.learn(carry, traj, last_value)
+  torch.cuda.synchronize()
+  t2 = time.perf_counter()
+  return (1e3 * (t1 - t0) / config.rollout_length,
+          1e3 * (t2 - t1) / (config.num_epochs * config.num_minibatches))
+
+
+def training(dev, eval_reports, path_launches) -> dict:
+  """Phase 18 (see the module docstring); returns the numbers it read. The
+  checkpoints it saves go to a temporary directory, removed after."""
+  import tempfile
+
+  with tempfile.TemporaryDirectory(prefix='smoke_train_') as tmp:
+    return _training(dev, eval_reports, path_launches, tmp)
+
+
+def _training(dev, eval_reports, path_launches, tmp) -> dict:
+  import numpy as np
+  import torch
+
+  from putting_dune_torch import eval_lib
+  from putting_dune_torch import lattice as lattice_lib
+  from putting_dune_torch import rates as rates_lib
+  from putting_dune_torch import registry
+  from putting_dune_torch import run_helpers
+  from putting_dune_torch.agents import distill
+  from putting_dune_torch.agents import eval_agent
+  from putting_dune_torch.agents import ppo
+  from putting_dune_torch.env import multi_dopant
+  from putting_dune_torch.ops import _build
+
+  out = {}
+
+  def train_env(name, batch, render=None):
+    exp = registry.create_train_experiment(name)
+    return run_helpers.create_batched_env(
+        exp.get_adapters_and_goal, exp.get_simulator_config,
+        batch_size=batch, image_size=render, device=dev)
+
+  def small_eval(env, model):
+    agg = eval_lib.aggregate_results(eval_lib.evaluate_batched(
+        env, eval_agent.mean_policy(model), eval_lib.EVAL_SUITES['small_eval']))
+    return agg.average_num_times_reached_goal, agg.average_num_actions_taken
+
+  # -- 18a. vector PPO at the shipped zoo config ----------------------------
+  env = train_env('ppo_learned_2s', 1024)
+  config = ppo.PPOConfig(num_updates=PPO_VECTOR_UPDATES, rollout_length=64)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  policy, metrics = ppo.train_and_save(
+      env, os.path.join(tmp, 'vector'), config, seed=PPO_VECTOR_SEED,
+      updates_per_chunk=PPO_VECTOR_UPDATES // 2, log_every_chunk=True)
+  seconds = time.perf_counter() - t0
+  rate = metrics['terminal_rate']
+  early, late = float(rate[:10].mean()), float(rate[40:50].mean())
+  env_steps = len(rate) * config.rollout_length * env.batch_size
+  grad_steps = len(rate) * config.num_epochs * config.num_minibatches
+  trainer = ppo.PPOTrainer(env, config)
+  roll_ms, grad_ms = time_update(trainer, trainer.init_carry(1))
+  loaded = eval_agent.load_policy(os.path.join(tmp, 'vector'), dev)
+  success, actions = small_eval(train_env('ppo_learned_2s', 100), loaded)
+  print(f'training 18a ppo_learned_2s: {len(rate)} updates (batch 1024, '
+        f'rollout 64, 4 x 8 minibatches of 8192, hidden (256, 256)) in '
+        f'{seconds:.2f} s through train_and_save (chunks of '
+        f'{PPO_VECTOR_UPDATES // 2}), {env_steps / seconds:.1f} env steps/s '
+        f'overall; one more update timed by phase: {roll_ms:.4f} ms a rollout '
+        f'step ({1024e3 / roll_ms:.1f} env steps/s), {grad_ms:.4f} ms a '
+        f'gradient step ({1e3 / grad_ms:.1f} steps/s); terminal rate updates '
+        f'0-9 {early:.5f}, 40-49 {late:.5f} (bar '
+        f'{PPO_TERMINAL_RATE_BAR:.5f}); '
+        f'loss {metrics["loss"][0]:.4f} -> {metrics["loss"][-1]:.4f}; '
+        f'small_eval success {success}, actions {actions:.2f} (bar '
+        f'{PPO_SUCCESS_BAR:.4f})', flush=True)
+  check(bool(np.isfinite(metrics['loss']).all()), '18a: loss not finite')
+  check(late >= 2.0 * early, '18a: the terminal rate did not double')
+  check(late >= PPO_TERMINAL_RATE_BAR, '18a: terminal rate below its bar')
+  check(success >= PPO_SUCCESS_BAR, '18a: small_eval success below its bar')
+  out['vector'] = dict(updates=len(rate), seconds=seconds,
+                       env_steps=env_steps, grad_steps=grad_steps,
+                       rollout_ms_per_step=roll_ms, grad_ms_per_step=grad_ms,
+                       terminal_rate_0_9=early, terminal_rate_40_49=late,
+                       success=success, actions=actions)
+  del env, trainer, policy, loaded
+  torch.cuda.empty_cache()
+
+  # -- 18b. pixel PPO at the shipped pixel config ---------------------------
+  def pixel_run(render, updates):
+    """`updates` pixel PPO updates at a `render`^2 render (None: the
+    default 512^2), the launches counted from the reset on."""
+    env = train_env('relative_simple_rates_from_images', 256, render)
+    config = ppo.PPOConfig(num_updates=updates, rollout_length=16,
+                           reward_shaping_coef=0.05)
+    trainer = ppo.PPOTrainer(env, config)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry = trainer.init_carry(0)
+    before = ppo.actor_critic_to_flax(carry.model)
+    carry, metrics = trainer.run_updates(carry, updates)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counted = dict(_build.LAUNCHES)
+    loss = metrics['loss'].cpu().numpy()
+    moved = max(float(np.abs(a - b).max()) for a, b in zip(
+        _leaves(before), _leaves(ppo.actor_critic_to_flax(carry.model))))
+    steps = updates * config.rollout_length
+    print(f'training 18b pixel PPO at {render or 512}^2: {updates} updates '
+          f'(batch 256, rollout 16, minibatches of 512 frames, shaping 0.05) in '
+          f'{seconds:.2f} s, {steps * 256 / seconds:.1f} env steps/s overall; '
+          f'loss {loss.tolist()}; largest parameter move {moved:.3g}; '
+          f'launches {counted}', flush=True)
+    check(bool(np.isfinite(loss).all()),
+          f'18b {render or 512}^2: loss not finite')
+    check(moved > 0.0, f'18b {render or 512}^2: the parameters did not move')
+    return env, trainer, carry, counted, seconds, steps
+
+  env, trainer, carry, counted, seconds, steps = pixel_run(128, 10)
+  path_launches['ppo_pixel_128'] = counted
+  # One render a rollout step, and one for the reset.
+  check(counted['noise_chain'] == steps + 1 and
+        counted['clahe_small'] == steps + 1,
+        '18b: noise_chain and clahe_small not once a step and reset')
+  for name in ('clahe_hist_lut', 'clahe_remap', 'splat_render',
+               'clahe_interp'):
+    check(counted[name] == 0, f'18b: {name} launched at the 128^2 render')
+  roll_ms, grad_ms = time_update(trainer, carry)
+  saved = os.path.join(tmp, 'pixel')
+  policy = ppo.as_policy(carry.model, env, trainer.config)
+  eval_agent.save_policy(policy, saved)
+  loaded = eval_agent.load_policy(saved, dev)
+  with torch.no_grad():
+    mean = eval_agent.mean_policy(loaded)(None, carry.ts.observation)
+  warm = trainer.init_carry(1, eval_agent.read_flax_params(
+      os.path.join(saved, 'policy.ckpt')))
+  same = all(np.array_equal(a, b) for a, b in zip(
+      _leaves(ppo.actor_critic_to_flax(warm.model)),
+      _leaves(ppo.actor_critic_to_flax(loaded))))
+  print(f'training 18b: one more update timed by phase: {roll_ms:.4f} ms a '
+        f'rollout step ({256e3 / roll_ms:.1f} env steps/s), {grad_ms:.4f} ms '
+        f'a gradient step; save -> load: mean actions in '
+        f'[{float(mean.min()):.3f}, {float(mean.max()):.3f}]; warm start '
+        f'holds the checkpoint exactly: {same}', flush=True)
+  check(bool(torch.isfinite(mean).all()) and float(mean.abs().max()) <= 1.0,
+        '18b: loaded policy actions outside [-1, 1]')
+  check(same, '18b: the warm start does not hold the checkpoint')
+  out['pixel_128'] = dict(updates=10, seconds=seconds,
+                          rollout_ms_per_step=roll_ms,
+                          grad_ms_per_step=grad_ms, launches=counted)
+  del env, trainer, carry, warm, policy, loaded
+  torch.cuda.empty_cache()
+  env, trainer, carry, counted, seconds, steps = pixel_run(None, 2)
+  path_launches['ppo_pixel_512'] = counted
+  for name in ('noise_chain', 'clahe_hist_lut', 'clahe_remap'):
+    check(counted[name] == steps + 1,
+          f'18b: {name} not once a step and reset at the 512^2 render')
+  check(counted['clahe_small'] == 0, '18b: clahe_small launched at 512^2')
+  out['pixel_512'] = dict(updates=2, seconds=seconds, launches=counted)
+  del env, trainer, carry
+  torch.cuda.empty_cache()
+
+  # -- 18c. multi-dopant PPO at the shipped config ---------------------------
+  env = multi_dopant.MultiDopantEnv(
+      lattice=lattice_lib.make_lattice(50, dev),
+      rate_fn=rates_lib.simple_canonical_rates, batch_size=1024,
+      num_dopants=2, dwell_seconds=5.0, device=dev)
+  config = ppo.PPOConfig(num_updates=5, rollout_length=64,
+                         reward_shaping_coef=0.05)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  _, metrics = ppo.make_train(env, config)(0)
+  metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
+  seconds = time.perf_counter() - t0
+  print(f'training 18c multi-dopant PPO (batch 1024, 2 dopants, dwell 5 s, '
+        f'rollout 64, shaping 0.05): 5 updates in {seconds:.2f} s, '
+        f'{seconds / 5:.3f} s an update, '
+        f'{5 * 64 * 1024 / seconds:.1f} env steps/s; loss '
+        f'{metrics["loss"].tolist()}, terminal rate '
+        f'{metrics["terminal_rate"].tolist()}', flush=True)
+  check(all(bool(np.isfinite(v).all()) for v in metrics.values()),
+        '18c: metrics not finite')
+  out['multi_dopant'] = dict(updates=5, seconds=seconds,
+                             terminal_rate=metrics['terminal_rate'].tolist())
+  del env
+  torch.cuda.empty_cache()
+
+  # -- 18d. DAgger distillation at the shipped config -------------------------
+  exp = registry.create_eval_experiment('planner_prior_rates')
+  env = run_helpers.create_batched_env(
+      exp.get_adapters_and_goal, exp.get_simulator_config, batch_size=1024,
+      device=dev)
+  config = distill.DistillConfig(num_iterations=12, rollout_length=64,
+                                 sgd_steps_per_iteration=384,
+                                 minibatch_size=4096)
+  losses = []
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  student = distill.train_and_save(
+      env, os.path.join(tmp, 'student'), rates_lib.prior_rates, config,
+      seed=0, progress=lambda i, m: losses.append(m['loss']))
+  seconds = time.perf_counter() - t0
+  eval_env = run_helpers.create_batched_env(
+      exp.get_adapters_and_goal, exp.get_simulator_config, batch_size=100,
+      device=dev)
+  loaded = eval_agent.load_policy(os.path.join(tmp, 'student'), dev)
+  success, actions = small_eval(eval_env, loaded)
+  planner_actions = eval_reports['planner_prior_rates']['aggregate'][
+      'average_num_actions_taken']
+  _, ts = eval_env.reset(torch.Generator(device=dev).manual_seed(3))
+  with torch.no_grad():
+    same = torch.equal(student(ts.observation), loaded(ts.observation))
+  print(f'training 18d DAgger (batch 1024, 12 iterations x 64 steps, 384 SGD '
+        f'steps of 4096 each): {seconds:.2f} s; loss by iteration '
+        f'{[round(v, 5) for v in losses]}; student on small_eval success '
+        f'{success}, actions {actions:.2f} against the live planner\'s '
+        f'{planner_actions:.2f} (gate: success >= 0.95, actions <= '
+        f'{1.5 * planner_actions:.2f}); save -> load same actions: {same}',
+        flush=True)
+  check(success >= 0.95, '18d: student success below the ship gate')
+  check(actions <= 1.5 * planner_actions,
+        '18d: student actions above 1.5x the planner\'s')
+  check(same, '18d: the loaded student acts differently')
+  out['distill'] = dict(seconds=seconds, losses=losses, success=success,
+                        actions=actions, planner_actions=planner_actions)
+  return out
+
+
+def _leaves(tree):
+  """The arrays of a nested dict, in key order."""
+  if isinstance(tree, dict):
+    return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+  return [tree]
+
+
 def main() -> None:
   import torch
 
@@ -711,11 +995,15 @@ def main() -> None:
                          nb_512['bound_ms'], nb_512['bound_by'],
                          SOURCES['noise_chain'])
   t_hist = time_ms(lambda: clahe_fused.clahe_hist_lut(philox))
-  # Device time alone, for the kernels whose per-call time is mostly the
+  # Device time alone (CUPTI), beside the per-call time, which holds the
   # wrapper's host time.
-  device = {'clahe_hist_lut': device_ms(
-      lambda: clahe_fused.clahe_hist_lut(philox),
-      KERNEL_NAMES['clahe_hist_lut'])}
+  device = {
+      'clahe_hist_lut': device_ms(lambda: clahe_fused.clahe_hist_lut(philox),
+                                  KERNEL_NAMES['clahe_hist_lut']),
+      'noise_chain': device_ms(
+          lambda: noise_fused.noise_chain(clean, packed, seeds=seeds),
+          KERNEL_NAMES['noise_chain']),
+  }
   t_hist_plain = time_ms(lambda: clahe_fused.hist_lut_reference(philox),
                          repeats=20)
   rows['clahe_hist_lut'] = (t_hist, t_hist_plain, map_err,
@@ -723,6 +1011,9 @@ def main() -> None:
                                    HIST_OPS_PER_PIXEL * npx),
                             SOURCES['clahe_hist_lut'])
   t_remap = time_ms(lambda: clahe_fused.clahe_remap(philox, mapping))
+  device['clahe_remap'] = device_ms(
+      lambda: clahe_fused.clahe_remap(philox, mapping),
+      KERNEL_NAMES['clahe_remap'])
   t_remap_plain = time_ms(
       lambda: clahe_fused.remap_reference(philox, mapping), repeats=20)
   rows['clahe_remap'] = (t_remap, t_remap_plain, remap_err,
@@ -878,6 +1169,10 @@ def main() -> None:
   t_noise_mid = time_rotating_ms(
       lambda x: noise_fused.noise_chain(x, packed_100, seeds=seeds_100),
       noise_inputs)
+  d_noise_mid = device_ms(
+      rotating(lambda x: noise_fused.noise_chain(x, packed_100,
+                                                 seeds=seeds_100),
+               noise_inputs), KERNEL_NAMES['noise_chain'])
   t_noise_mid_plain = time_ms(lambda: noise_fused.noise_chain_reference(
       noise_inputs[0], packed_100, gen=gen), repeats=10)
   nb_256 = noise_bound(noise_inputs[0], packed_100)
@@ -887,7 +1182,7 @@ def main() -> None:
       'bound_by': nb_256['bound_by'],
       'bytes_bound_ms': nb_256['bytes_bound_ms'],
       'operations_bound_ms': nb_256['operations_bound_ms'],
-      'max_abs_err': noise_mid_err})
+      'max_abs_err': noise_mid_err, 'device_ms': d_noise_mid})
   del noise_inputs
 
   # Times: four buffers in turn (67 MB and 134 MB of frames, above the
@@ -926,6 +1221,9 @@ def main() -> None:
                          KERNEL_NAMES['clahe_hist_lut'])
   t_remap_mid = time_rotating_ms(
       lambda x: clahe_fused.clahe_remap(x, map_mid), mid_inputs)
+  d_remap_mid = device_ms(
+      rotating(lambda x: clahe_fused.clahe_remap(x, map_mid), mid_inputs),
+      KERNEL_NAMES['clahe_remap'])
   t_pair_mid = time_rotating_ms(pair, mid_inputs)
   for name, ms, plain_fn, err, (bound_ms, bound_by) in [
       ('clahe_hist_lut', t_hist_mid,
@@ -941,11 +1239,15 @@ def main() -> None:
         'plain_ms': time_ms(plain_fn, repeats=20), 'bound_ms': bound_ms,
         'bound_by': bound_by, 'max_abs_err': err})
   other_shapes['clahe_hist_lut'][-1]['device_ms'] = d_hist_mid
+  other_shapes['clahe_remap'][-1]['device_ms'] = d_remap_mid
   # The any-`nbins` histogram branch at 128 bins (4 MB of frames: they stay
   # in L2 whatever the rotation).
   v128_inputs = [x_v128] + [frames((64, 128, 128)) for _ in range(3)]
   t_hist_v128 = time_rotating_ms(
       lambda x: clahe_fused.clahe_hist_lut(x, nbins=128), v128_inputs)
+  d_hist_v128 = device_ms(
+      rotating(lambda x: clahe_fused.clahe_hist_lut(x, nbins=128),
+               v128_inputs), KERNEL_NAMES['clahe_hist_lut'])
   v128_bound, v128_by = bound(
       4.0 * x_v128.numel() + map_v128.numel() * 8,
       HIST_OPS_PER_PIXEL * x_v128.numel())
@@ -955,7 +1257,7 @@ def main() -> None:
           lambda: clahe_fused.hist_lut_reference(x_v128, nbins=128),
           repeats=20),
       'bound_ms': v128_bound, 'bound_by': v128_by,
-      'max_abs_err': v128_errs[0]})
+      'max_abs_err': v128_errs[0], 'device_ms': d_hist_v128})
   del v128_inputs, x_v128, map_v128
   pair_bound, _ = bound(8.0 * n_mid, 0)
   print(f'clahe pair (128, 256, 256): hist_lut {t_hist_mid:.4f} ms (device '
@@ -1326,7 +1628,13 @@ def main() -> None:
   summary = rate_stack(dev, run_eval, eval_reports, path_launches)
   print(f'rate stack summary: {json.dumps(summary)}', flush=True)
 
-  # -- 18. kernels line --------------------------------------------------------
+  # -- 18. training -------------------------------------------------------------
+  t0 = time.perf_counter()
+  summary = training(dev, eval_reports, path_launches)
+  print(f'training summary ({time.perf_counter() - t0:.1f} s): '
+        f'{json.dumps(summary)}', flush=True)
+
+  # -- 19. kernels line --------------------------------------------------------
   kernels = []
   for name, (ms, plain_ms, err, bound_ms, bound_by, source) in rows.items():
     by_path = {path: counts[name] for path, counts in path_launches.items()}

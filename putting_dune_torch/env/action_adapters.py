@@ -1,13 +1,13 @@
 """Action adapters: agent action -> beam control, batched.
 
-Port of the two silicon-relative adapters of
-putting_dune_tpu/env/action_adapters.py. Each adapter has
+Port of putting_dune_tpu/env/action_adapters.py. Each adapter has
 
     spec()                          -> ActionSpec
     init_state(gen, batch_size)     -> per-env adapter state (or None)
     to_controls(state, ctx, action) -> (new_state, BeamControl)
 
-The direct and delta-position adapters are not ported yet.
+The dwell is a fixed 1.5 s unless the adapter exposes dwell-time control
+(a 3rd action dim).
 """
 
 from __future__ import annotations
@@ -54,6 +54,48 @@ def _dwell_from_action(action: torch.Tensor, min_dwell: float,
                       device=action.device)
   frac = torch.clamp(action[..., 2], 0.0, 1.0)
   return frac * (max_dwell - min_dwell) + min_dwell
+
+
+@dataclasses.dataclass(frozen=True)
+class DirectActionAdapter:
+  """Absolute [0, 1]^2 beam placement at a fixed dwell."""
+
+  dwell_seconds: float = DEFAULT_DWELL_SECONDS
+
+  def spec(self) -> ActionSpec:
+    return ActionSpec((2,), 0.0, 1.0)
+
+  def init_state(self, gen, batch_size: int):
+    del gen, batch_size
+    return None
+
+  def to_controls(self, state, ctx: AdapterContext, action: torch.Tensor):
+    del ctx
+    position = torch.clamp(action, 0.0, 1.0)
+    dwell = torch.full(action.shape[:-1], self.dwell_seconds,
+                       dtype=torch.float32, device=action.device)
+    return state, structures.BeamControl(position, dwell)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeltaPositionActionAdapter:
+  """A beam moved by a clipped delta. Its position persists across steps
+  and is drawn anew, U(0, 1)^2, when an episode starts."""
+
+  dwell_seconds: float = DEFAULT_DWELL_SECONDS
+
+  def spec(self) -> ActionSpec:
+    return ActionSpec((2,), -0.1, 0.1)
+
+  def init_state(self, gen: torch.Generator, batch_size: int):
+    return torch.rand((batch_size, 2), generator=gen, device=gen.device)
+
+  def to_controls(self, state, ctx: AdapterContext, action: torch.Tensor):
+    del ctx
+    beam = torch.clamp(state + action, 0.0, 1.0)
+    dwell = torch.full(action.shape[:-1], self.dwell_seconds,
+                       dtype=torch.float32, device=action.device)
+    return beam, structures.BeamControl(beam, dwell)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -31,12 +31,13 @@ BN_MOMENTUM = 0.9
 BN_EPSILON = 1e-5
 
 
-def lecun_normal_(tensor: torch.Tensor, generator: torch.Generator
-                  ) -> torch.Tensor:
-  """flax's default Dense init in place: a normal truncated to +-2 std,
-  rescaled to variance 1 / fan_in (fan_in = tensor.shape[-2]), drawn by
-  the inverse CDF as jax.random.truncated_normal does."""
-  fan_in = tensor.shape[-2]
+def lecun_normal_(tensor: torch.Tensor, generator: torch.Generator,
+                  fan_in: Optional[int] = None) -> torch.Tensor:
+  """flax's default Dense and Conv init in place: a normal truncated to +-2
+  std, rescaled to variance 1 / fan_in (by default tensor.shape[-2], a
+  flax-layout kernel's input width), drawn by the inverse CDF as
+  jax.random.truncated_normal does."""
+  fan_in = tensor.shape[-2] if fan_in is None else fan_in
   std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
   lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
   hi = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))

@@ -1,8 +1,8 @@
-"""Named eval experiments (port of
-putting_dune_tpu/experiments/registry.py).
+"""Named experiments (port of putting_dune_tpu/experiments/registry.py).
 
 The same names and compositions as the JAX package: all of its
-single-dopant eval experiments and all of its multi-dopant ones. An
+single-dopant eval experiments, all of its multi-dopant ones and its train
+experiments (the env a trainer builds: adapters, features and simulator). An
 experiment's `get_policy(adapters_and_goal, device)` returns a batched
 policy `(gen, observation) -> action`, or an agent whose `policy()` gives
 one (eval.py `policy_for_agent`). The multi-dopant experiments carry an
@@ -43,6 +43,12 @@ class SimulatorSpec:
   rate_fn: rates_lib.RateFunction
   image_duration_seconds: float = 2.0
   drift_per_frame_angstroms: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainExperiment:
+  get_adapters_and_goal: Callable[[], AdaptersAndGoal]
+  get_simulator_config: Callable[[], SimulatorSpec]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,6 +181,14 @@ def _single_silicon_from_pixels(
   )
 
 
+def _direct_from_pixels():
+  """Absolute [0, 1]^2 beam placement + image features."""
+  return AdaptersAndGoal(
+      action_adapter=action_adapters.DirectActionAdapter(),
+      feature_constructor=features_lib.ImageFeatures(),
+  )
+
+
 def _material_frame(min_dwell_seconds=5.0, max_dwell_seconds=5.0):
   """Material-frame features and actions, 2 bonds; a fixed 5 s dwell by
   default."""
@@ -206,6 +220,11 @@ def _human_prior_rates_config():
 def _aligned_prior_rates_config():
   return SimulatorSpec(rate_fn=rates_lib.prior_rates_aligned,
                        image_duration_seconds=2.0)
+
+
+def _prior_rates_config_with_duration(image_duration_seconds: float):
+  return SimulatorSpec(rate_fn=rates_lib.prior_rates,
+                       image_duration_seconds=image_duration_seconds)
 
 
 def _simple_rates_drift_config():
@@ -410,6 +429,65 @@ def create_eval_experiment(name: str) -> EvalExperiment:
 
 def eval_experiment_names():
   return tuple(_EVAL_EXPERIMENTS)
+
+
+# -------------------- train experiments ---------------------------------------
+
+_TRAIN_EXPERIMENTS = {
+    'relative_simple_rates': TrainExperiment(
+        get_adapters_and_goal=_single_silicon_goal_reaching,
+        get_simulator_config=_simple_rates_config,
+    ),
+    'relative_prior_rates': TrainExperiment(
+        get_adapters_and_goal=_single_silicon_goal_reaching,
+        get_simulator_config=_human_prior_rates_config,
+    ),
+    # The vector task on a drifting microscope: the goal vector goes stale
+    # over the episode, and the policy never observes the drift.
+    'relative_simple_rates_drift': TrainExperiment(
+        get_adapters_and_goal=_single_silicon_goal_reaching,
+        get_simulator_config=_simple_rates_drift_config,
+    ),
+    'relative_simple_rates_from_images': TrainExperiment(
+        get_adapters_and_goal=_single_silicon_from_pixels,
+        get_simulator_config=_simple_rates_config,
+    ),
+    'relative_simple_rates_from_images_variable_time': TrainExperiment(
+        get_adapters_and_goal=functools.partial(
+            _single_silicon_from_pixels, min_dwell_seconds=1.0,
+            max_dwell_seconds=10.0),
+        get_simulator_config=_simple_rates_config,
+    ),
+    'direct_simple_rates_from_images': TrainExperiment(
+        get_adapters_and_goal=_direct_from_pixels,
+        get_simulator_config=_simple_rates_config,
+    ),
+}
+
+# The training configurations of the shipped zoo checkpoints: each on the
+# adapters of its eval entry (_ZOO), under the human prior, with the image
+# duration of its name.
+_TRAIN_EXPERIMENTS.update({
+    f'ppo_{family}_{n}s': TrainExperiment(
+        get_adapters_and_goal=functools.partial(
+            _single_silicon_goal_reaching, *adapter),
+        get_simulator_config=functools.partial(
+            _prior_rates_config_with_duration, float(n)),
+    )
+    for family, adapter in (('learned', (1.0, 10.0, BOND)),
+                            ('v3', (1.5, 20.0, 3 * BOND)))
+    for n in (2, 3, 4)
+})
+
+
+def create_train_experiment(name: str) -> TrainExperiment:
+  if name not in _TRAIN_EXPERIMENTS:
+    raise ValueError(f'Unknown train experiment {name}.')
+  return _TRAIN_EXPERIMENTS[name]
+
+
+def train_experiment_names():
+  return tuple(_TRAIN_EXPERIMENTS)
 
 
 # -------------------- multi-dopant experiments -------------------------------

@@ -422,3 +422,120 @@ def test_splat_render_is_bit_equal_to_the_atom_order_version(
   want = splat.splat_render_atom_order(bx, by, w, sx, sy, image_size=s)
   assert float((got - want).abs().max()) == 0.0
   assert float(got.amax()) == 1.0
+
+
+def _toy_update_on(device, seed=0):
+  """One PPO update on the toy env (tests/torch_toy_env.py) on `device`,
+  from fixed parameters with injected noises and permutations."""
+  import torch_toy_env
+  from putting_dune_torch.agents import ppo
+
+  config = ppo.PPOConfig(hidden=(64, 64), rollout_length=8, num_epochs=2,
+                         num_minibatches=4, reward_shaping_coef=0.05)
+  env = torch_toy_env.ToyEnv(torch_toy_env.starts(256, seed=seed), device)
+  gen = torch.Generator().manual_seed(seed)
+  template = ppo.flax_init_(ppo.ActorCritic(2, config.hidden, (), obs_dim=6),
+                            gen)
+  noise = torch.randn((1, 8, 256, 2), generator=gen)
+  perms = torch.stack([torch.randperm(8 * 256, generator=gen)
+                       for _ in range(2)])[None]
+  init_carry, run_updates = ppo.make_train_fns(env, config)
+  carry = init_carry(seed, ppo.actor_critic_to_flax(template))
+  carry, metrics = run_updates(carry, 1, noise=noise.to(device),
+                               perms=perms.to(device))
+  return (ppo.actor_critic_to_flax(carry.model),
+          {k: float(v[0]) for k, v in metrics.items()})
+
+
+def test_ppo_update_on_cuda_matches_cpu(cuda):
+  import torch_toy_env
+
+  got_params, got_metrics = _toy_update_on(cuda)
+  want_params, want_metrics = _toy_update_on('cpu')
+  assert torch_toy_env.max_tree_diff(got_params, want_params) <= 1e-4
+  for name, value in want_metrics.items():
+    assert abs(got_metrics[name] - value) <= 1e-4, name
+
+
+def _toy_dagger_iteration_on(device, seed=0):
+  import torch_toy_env
+  from putting_dune_torch.agents import distill
+  from putting_dune_torch.agents import eval_agent
+  from putting_dune_torch.agents import ppo
+
+  config = distill.DistillConfig(num_iterations=1, rollout_length=8,
+                                 sgd_steps_per_iteration=16,
+                                 minibatch_size=512, hidden=(64, 64),
+                                 output_scale=1.0)
+  env = torch_toy_env.ToyEnv(torch_toy_env.starts(256, seed=seed), device)
+  gen = torch.Generator().manual_seed(seed)
+  template = ppo.flax_init_(distill.student_module(config, 6), gen)
+  mix = torch.rand((8, 256, 1), generator=gen)
+  indices = torch.randint(0, 8 * 256, (16, 512), generator=gen)
+  init_carry, run_iteration = distill.make_distill_fns(
+      env, None, config, teacher=torch_toy_env.teacher)
+  carry = init_carry(seed, eval_agent.policy_to_flax(template))
+  carry, metrics = run_iteration(carry, 0.5, mix=mix.to(device),
+                                 indices=indices.to(device))
+  return eval_agent.policy_to_flax(carry.model), float(metrics['loss'])
+
+
+def test_dagger_iteration_on_cuda_matches_cpu(cuda):
+  import torch_toy_env
+
+  got_params, got_loss = _toy_dagger_iteration_on(cuda)
+  want_params, want_loss = _toy_dagger_iteration_on('cpu')
+  assert torch_toy_env.max_tree_diff(got_params, want_params) <= 1e-4
+  assert abs(got_loss - want_loss) <= 1e-4
+
+
+def _pixel_learn_on(device, seed=0):
+  """One update's gradient steps of an image actor-critic on `device`, on
+  a fixed made-up rollout: the convolutions' backward runs in full
+  float32 on the card (PPOTrainer.learn), so it agrees with the CPU."""
+  import types
+
+  from putting_dune_torch.agents import ppo
+
+  t, b, size = 4, 32, 32
+  shape = types.SimpleNamespace
+  env = types.SimpleNamespace(
+      batch_size=b, device=torch.device(device),
+      action_spec=lambda: shape(shape=(2,)),
+      observation_spec=lambda: {'image': shape(shape=(size, size, 1)),
+                                'goal_delta_angstroms': shape(shape=(2,))})
+  config = ppo.PPOConfig(rollout_length=t, num_epochs=2, num_minibatches=2,
+                         hidden=(32,), conv_features=(8, 16, 32))
+  gen = torch.Generator().manual_seed(seed)
+  model = ppo.flax_init_(ppo.ActorCritic(2, (32,), (8, 16, 32), size), gen)
+  traj = {
+      'obs': {'image': torch.rand((t, b, size, size, 1), generator=gen),
+              'goal_delta_angstroms': torch.randn((t, b, 2), generator=gen)},
+      'action': torch.randn((t, b, 2), generator=gen),
+      'logprob': -2.0 + 0.1 * torch.randn((t, b), generator=gen),
+      'value': torch.randn((t, b), generator=gen),
+      'reward': (torch.rand((t, b), generator=gen) < 0.1).float(),
+      'discount': torch.full((t, b), 0.99),
+      'next_is_first': torch.rand((t, b), generator=gen) < 0.05,
+  }
+  last_value = torch.randn((b,), generator=gen)
+  perms = torch.stack([torch.randperm(t * b, generator=gen)
+                       for _ in range(2)])
+  model = model.to(device)
+  to = lambda x: ({k: v.to(device) for k, v in x.items()}
+                  if isinstance(x, dict) else x.to(device))
+  carry = ppo.TrainCarry(model, ppo.make_optimizer(model, 3e-4), None, None,
+                         torch.Generator(device=device))
+  metrics = ppo.PPOTrainer(env, config).learn(
+      carry, {k: to(v) for k, v in traj.items()}, last_value.to(device),
+      perms.to(device))
+  return ppo.actor_critic_to_flax(model), float(metrics['loss'])
+
+
+def test_pixel_ppo_gradient_steps_on_cuda_match_cpu(cuda):
+  import torch_toy_env
+
+  got_params, got_loss = _pixel_learn_on(cuda)
+  want_params, want_loss = _pixel_learn_on('cpu')
+  assert torch_toy_env.max_tree_diff(got_params, want_params) <= 1e-4
+  assert abs(got_loss - want_loss) <= 1e-4

@@ -82,7 +82,8 @@ def _close(a, b, atol):
   np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize('adapter', ['relative', 'material'])
+@pytest.mark.parametrize('adapter', ['relative', 'material', 'direct',
+                                     'delta'])
 def test_adapters_match_jax(adapter):
   _, state, _ = _jax_env_state()
   fov = state.sim.fov
@@ -99,18 +100,62 @@ def test_adapters_match_jax(adapter):
     j_ad = j_adapters.RelativeToSiliconActionAdapter(**args)
     t_ad = t_adapters.RelativeToSiliconActionAdapter(**args)
     action = rng.uniform(-1.3, 1.3, (16, 2)).astype(np.float32)
-  else:
+  elif adapter == 'material':
     args = dict(min_dwell_seconds=1.0, max_dwell_seconds=5.0,
                 max_distance_angstroms=2.84)
     j_ad = j_adapters.RelativeToSiliconMaterialFrameActionAdapter(**args)
     t_ad = t_adapters.RelativeToSiliconMaterialFrameActionAdapter(**args)
     action = rng.uniform(-3, 3, (16, 3)).astype(np.float32)
     action[:, 2] = rng.uniform(-0.2, 1.2, 16)
+  elif adapter == 'direct':
+    j_ad = j_adapters.DirectActionAdapter(dwell_seconds=2.5)
+    t_ad = t_adapters.DirectActionAdapter(dwell_seconds=2.5)
+    action = rng.uniform(-0.3, 1.3, (16, 2)).astype(np.float32)
+  else:
+    j_ad = j_adapters.DeltaPositionActionAdapter()
+    t_ad = t_adapters.DeltaPositionActionAdapter()
+    action = rng.uniform(-0.15, 0.15, (16, 2)).astype(np.float32)
+  # The delta adapter's beam state; the others carry None.
+  beam = (rng.uniform(0, 1, (16, 2)).astype(np.float32)
+          if adapter == 'delta' else None)
   assert dataclasses.astuple(j_ad.spec()) == dataclasses.astuple(t_ad.spec())
-  _, jc = j_ad.to_controls(None, j_ctx, jnp.asarray(action))
-  _, tc = t_ad.to_controls(None, t_ctx, torch.from_numpy(action))
+  j_state, jc = j_ad.to_controls(
+      None if beam is None else jnp.asarray(beam), j_ctx, jnp.asarray(action))
+  t_state, tc = t_ad.to_controls(
+      None if beam is None else torch.from_numpy(beam), t_ctx,
+      torch.from_numpy(action))
   _close(tc.position, jc.position, 1e-6)
   _close(tc.dwell_seconds, jc.dwell_seconds, 1e-6)
+  if beam is None:
+    assert t_state is None and j_state is None
+  else:
+    _close(t_state, j_state, 1e-6)
+
+
+def test_delta_adapter_state_starts_uniform_and_survives_auto_reset():
+  adapter = t_adapters.DeltaPositionActionAdapter()
+  gen = torch.Generator().manual_seed(0)
+  beam = adapter.init_state(gen, 20_000)
+  assert beam.shape == (20_000, 2) and beam.dtype == torch.float32
+  assert float(beam.min()) >= 0.0 and float(beam.max()) < 1.0
+  assert abs(float(beam.mean()) - 0.5) < 0.01
+  assert abs(float(beam.var()) - 1 / 12) < 0.002
+  # In the env: the beam persists across steps, and a finished env's is
+  # drawn anew with its fresh episode.
+  env = t_env.PuttingDuneEnv(
+      lattice=T_LAT, rate_fn=t_rates.simple_canonical_rates, adapter=adapter,
+      batch_size=8, config=t_env.EnvConfig(step_limit=2, reset_chunk=4),
+      device='cpu')
+  state, _ = env.reset(gen)
+  before = state.adapter_state.clone()
+  step = torch.full((8, 2), 0.05)
+  state, _ = env.step(state, step, gen)
+  _close(state.adapter_state, torch.clamp(before + step, 0.0, 1.0), 1e-7)
+  state, _ = env.step(state, step, gen)  # the step limit ends every episode
+  state, ts = env.step(state, step, gen)
+  assert bool(ts.first().all())
+  assert not torch.allclose(state.adapter_state,
+                            torch.clamp(before + 3 * step, 0.0, 1.0))
 
 
 def test_features_match_jax():

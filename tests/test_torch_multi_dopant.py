@@ -76,6 +76,8 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                  'predictor', 'train', '__init__'):
     assert f'putting_dune_torch/rate_learning/{module}.py' in names
   assert 'putting_dune_torch/io/serialization.py' in names
+  for module in ('distill', 'train_ppo', 'ppo', 'eval_agent'):
+    assert f'putting_dune_torch/agents/{module}.py' in names
   for path in sources:
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -95,9 +95,10 @@ def test_actor_critic_heads_and_same_padding():
 
 
 def test_load_policy_rejects_unported_kinds(tmp_path):
-  # 'actor_critic' and 'mlp' are ported; 'conv' still waits.
-  (tmp_path / 'policy.json').write_text('{"kind": "conv", "arch": {}}')
-  with pytest.raises(NotImplementedError, match='conv'):
+  # 'actor_critic', 'mlp' and 'conv' are every kind the JAX package saves;
+  # any other is refused, as EvalAgent.load refuses it.
+  (tmp_path / 'policy.json').write_text('{"kind": "transformer", "arch": {}}')
+  with pytest.raises(ValueError, match='transformer'):
     t_eval_agent.load_policy(str(tmp_path))
 
 

@@ -1,9 +1,10 @@
 """The port's single-dopant registry against the JAX package's, on the CPU.
 
-Every one of the JAX package's single-dopant eval names is in the port,
-composed the same way: the adapter's dwells and distance, the features,
-the simulator's rate law and image duration, and the agent (planner rate
-law and dwell, greedy argmax, checkpoint outputs, the learned rate model).
+Every one of the JAX package's single-dopant eval names and train names is
+in the port, composed the same way: the adapter's dwells and distance, the
+features, the simulator's rate law and image duration, and the agent
+(planner rate law and dwell, greedy argmax, checkpoint outputs, the
+learned rate model).
 `planner_learned_rates` is held to the JAX package in law on the same
 seeds (the two packages' streams differ).
 """
@@ -61,8 +62,44 @@ def test_all_jax_single_dopant_names_are_ported():
 
 @pytest.mark.parametrize('name', sorted(j_registry.eval_experiment_names()))
 def test_compositions_equal_jax(name):
-  t_exp = t_registry.create_eval_experiment(name)
-  j_exp = j_registry.create_eval_experiment(name)
+  _assert_same_composition(t_registry.create_eval_experiment(name),
+                           j_registry.create_eval_experiment(name))
+
+
+def test_all_jax_train_names_are_ported():
+  assert t_registry.train_experiment_names() == (
+      j_registry.train_experiment_names())
+  assert len(t_registry.train_experiment_names()) == 12
+  with pytest.raises(ValueError, match='Unknown train experiment'):
+    t_registry.create_train_experiment('ppo_learned_5s')
+
+
+@pytest.mark.parametrize('name', j_registry.train_experiment_names())
+def test_train_compositions_equal_jax(name):
+  _assert_same_composition(t_registry.create_train_experiment(name),
+                           j_registry.create_train_experiment(name))
+
+
+@pytest.mark.parametrize('name', [
+    'direct_simple_rates_from_images',
+    'relative_simple_rates_from_images_variable_time', 'ppo_v3_4s'])
+def test_train_envs_step_on_the_cpu(name):
+  exp = t_registry.create_train_experiment(name)
+  envir = t_run_helpers.create_batched_env(
+      exp.get_adapters_and_goal, exp.get_simulator_config, batch_size=3,
+      image_size=64, device='cpu')
+  spec = envir.action_spec()
+  gen = torch.Generator().manual_seed(0)
+  state, ts = envir.reset(gen)
+  for _ in range(2):
+    low = torch.as_tensor(spec.minimum, dtype=torch.float32)
+    high = torch.as_tensor(spec.maximum, dtype=torch.float32)
+    action = low + (high - low) * torch.rand((3,) + spec.shape, generator=gen)
+    state, ts = envir.step(state, action, gen)
+  assert bool(torch.isfinite(ts.reward).all())
+
+
+def _assert_same_composition(t_exp, j_exp):
   t_spec, j_spec = t_exp.get_simulator_config(), j_exp.get_simulator_config()
   assert t_spec.rate_fn.__name__ == j_spec.rate_fn.__name__
   assert t_spec.image_duration_seconds == j_spec.image_duration_seconds
