@@ -112,7 +112,43 @@ Phases (any failure exits non-zero before the final line):
       small_eval through the repo's ship gate (success >= 0.95, actions <=
       1.5x the live `planner_prior_rates` of phase 17), save -> load acting
       the same; each timed (seconds, env steps/s, gradient steps/s);
-  19. a `kernels` JSON line; 20. the result JSON line, last.
+  19. the hardware loop (the real-microscope path at batch 1): (a) the
+      shipped ImageAligner (features (64, 128, 256, 512), 5 frames, 128^2;
+      full-f32 convolutions) on the card against the port on the CPU over
+      a 12-frame drifting sequence: drift heads within 1e-4 A, queried
+      probabilities, and the whole local head and drifts of one stack,
+      within 1e-3, detections equal sets, `clahe_small` once a frame; one 1000 x 1000 frame, whose 1008^2 padded CLAHE takes
+      `clahe_hist_lut` + `clahe_remap` once each and agrees with its twin
+      within 2e-5; (b) `do_alignment` on `ALIGNMENT_SEEDS` sequences at 0.5 A
+      a frame, by the aligner on the card and by the port on the CPU: the
+      recovered FOVs agree within `ALIGNMENT_FOV_TOL`, and they recover the
+      simulator's drift: mean increment error < 0.35 A (the JAX test's bar)
+      and mean last-three-frames error within the JAX package's (its test's
+      other bar, 0.8x uncorrected, holds on 0.29 of the JAX package's own
+      sequences: see ALIGNMENT_SEEDS);
+      (c) the rehearsal, `SimulatedMicroscope` -> `ImageAligner` ->
+      `MicroscopeAgent('greedy_on_neighbor')`, 35 steps from each of
+      `REHEARSAL_SEEDS` seeds, corrected and uncorrected: the corrected
+      loop brings the true silicon within 0.72 A of the goal on at least
+      `REHEARSAL_REACH_BAR` of the seeds, `clahe_small` launched once a
+      render and once an aligner frame; (d) `AtomDetector` on the card
+      against the port on the CPU on `DETECTOR_FRAMES` clean generator
+      scenes at 256^2: equal sets on >= 0.99 of them, recall printed;
+      (e) each of the 16 microscope experiments drives the simulated
+      microscope for 5 steps with controls in [0, 1]^2, or raises where the
+      JAX package raises (`ppo_simple_images_tf`); (f) the host eval entry
+      point (`--nobatched`): `greedy_simple_rates` 10 of 10 on tiny_eval,
+      `ppo_simple_images_tf` at the 512^2 render >= 9 of 10, `noise_chain`
+      and the natural pair once a render, `--output_json` read back; (g)
+      each kernel of the loop against its plain twin on inputs the loop gave
+      it, at the loop's shapes: `noise_chain` on a clean (1, 128, 128) render
+      of the microscope and a clean (1, 512, 512) render of the pixel host
+      eval (injected draws within 1e-5; Philox draws against the twin fed
+      `draws_from_seeds`), `clahe_small` on a (1, 128, 128) render and on an
+      aligner frame, the pair on a (1, 512, 512) render (histograms equal,
+      output within 2e-5 of `clahe_reference`); every timing printed with
+      the card's name and power limit;
+  20. a `kernels` JSON line; 21. the result JSON line, last.
 
 It imports nothing of JAX or of putting_dune_tpu (the shipped weights are
 read as data).
@@ -120,6 +156,7 @@ read as data).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -232,6 +269,48 @@ PPO_VECTOR_SEED = 3
 # success less three binomial standard errors at 100 episodes.
 PPO_TERMINAL_RATE_BAR = 0.02411 - 3 * 0.00515
 PPO_SUCCESS_BAR = success_bar(0.8325)
+
+# Phase 19c rehearses the hardware loop (`greedy_on_neighbor`, 0.5 A per
+# frame, 128^2 renders, 35 steps) from seeds 0 .. REHEARSAL_SEEDS - 1. The
+# JAX package brings the true silicon within 0.72 A of the goal, with the
+# aligner in the loop, on REHEARSAL_JAX_REACH of seeds 0-69 on the CPU
+# (`scripts/rehearsal_pair.py`); the port on the CPU reads
+# REHEARSAL_PORT_REACH. A seed draws other episodes on the card (Philox on
+# CUDA, threefry in JAX), so the bar is the JAX rate less three binomial
+# standard errors at the smoke's number of seeds. Mean final distances
+# (corrected, uncorrected), JAX on the CPU: REHEARSAL_JAX_FINAL.
+REHEARSAL_SEEDS = 20
+REHEARSAL_STEPS = 35
+REHEARSAL_JAX_REACH = 59 / 70
+REHEARSAL_PORT_REACH = 54 / 70
+REHEARSAL_JAX_FINAL = (3.745, 2.486)
+REHEARSAL_REACH_BAR = REHEARSAL_JAX_REACH - 3 * (
+    REHEARSAL_JAX_REACH * (1 - REHEARSAL_JAX_REACH) / REHEARSAL_SEEDS) ** 0.5
+# Phase 19b: do_alignment over 12-frame sequences drifting 0.5 A a frame
+# (the JAX package's test_learned_aligner_recovers_simulated_drift), from
+# seeds 0-7, the first of the census below. The aligner on the card and the
+# port on the CPU align each sequence: their recovered FOVs must agree
+# within ALIGNMENT_FOV_TOL A, which checks the aligner itself
+# (tests/test_torch_image_alignment.py holds the port's do_alignment on the
+# CPU to the JAX package's within 1e-4). The JAX test's bars on one
+# sequence are an increment error below 0.35 A and a last-three-frames
+# error below 0.8x the uncorrected one. Over seeds 0-23 on the CPU
+# (`scripts/rehearsal_pair.py --alignment`) the JAX package meets the first
+# on 0.96 of the sequences (mean 0.2590 A, sd 0.0370) and the second on
+# 0.29 only: its mean last-three error, 1.1970 A (sd 0.5601), is above the
+# uncorrected 1.1106 (the port: 0.2492 A, 1.0 of them; 1.1587 against
+# 1.0146, 0.38). The smoke holds the mean increment error to 0.35 A and the
+# mean last-three error to the JAX mean plus three standard errors at its
+# number of sequences, a bar that the uncorrected error meets too, and
+# prints the 0.8x share.
+ALIGNMENT_SEEDS = tuple(range(8))
+ALIGNMENT_FOV_TOL = 1e-4
+ALIGNMENT_JAX_LAST3 = (1.1970, 0.5601)
+ALIGNMENT_LAST3_BAR = ALIGNMENT_JAX_LAST3[0] + 3 * ALIGNMENT_JAX_LAST3[1] / (
+    len(ALIGNMENT_SEEDS) ** 0.5)
+# Phase 19d: generator scenes for the detector on the card against the CPU
+# (>= 0.99 of them equal: all of them at 50).
+DETECTOR_FRAMES = 50
 
 # The pallas_call sites each kernel covers (file:line, further lines of
 # the same file after commas).
@@ -353,6 +432,25 @@ def recorded_device_ms(events, kernels, repeats):
       return None
     total_us += sum(e.device_time_total for e in hits) / repeats
   return total_us / 1e3
+
+
+def busy_share(fn) -> tuple[float, float]:
+  """(wall seconds, share of them the device ran kernels or copies) of one
+  call of fn, under torch.profiler's CUDA tracing."""
+  import torch
+  from torch.profiler import ProfilerActivity
+  from torch.profiler import profile
+
+  overhead = ('Command Buffer Full', 'Buffer Flush', 'Activity Buffer Request')
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.self_device_time_total > 0 and e.key not in overhead)
+  return wall, busy_us / 1e6 / wall
 
 
 def fmt_ms(ms) -> str:
@@ -858,12 +956,488 @@ def _leaves(tree):
   return [tree]
 
 
+def _same_points(a, b) -> bool:
+  """Two AtomicGrids hold the same detections (positions to 1e-9)."""
+  import numpy as np
+
+  key = lambda g: sorted(zip(np.round(g.atom_positions, 9).tolist(),  # noqa: E731
+                             g.atomic_numbers.tolist()))
+  return key(a) == key(b)
+
+
+def _detector_scenes(gen, lattice, count, image_size=256):
+  """`count` clean generator scenes (`sample_batch`'s default law) with
+  their true atoms: (frames (N, S, S) on the host, [(positions (K, 2) in
+  the microscope frame, atomic numbers)])."""
+  import torch
+
+  from putting_dune_torch import simulator as simulator_lib
+  from putting_dune_torch.imaging import render as render_lib
+
+  config = simulator_lib.SimulatorConfig(image_size=image_size)
+  with torch.no_grad():
+    state, obs = simulator_lib.reset(gen, lattice, config=config,
+                                     batch_size=count, return_window=True)
+    image = render_lib.render_stem_image(gen, obs.window, state.fov,
+                                         state.imaging, image_size=image_size)
+  window = obs.window
+  truth = []
+  for b in range(count):
+    mask = window.mask[b]
+    truth.append((window.positions[b][mask].cpu().numpy(),
+                   window.atomic_numbers[b][mask].cpu().numpy()))
+  return image.cpu().numpy(), truth
+
+
+def _recall(grid, positions, numbers, radius) -> tuple[int, int]:
+  """(true atoms matched by a detection of their species within `radius`,
+  true atoms), over the atoms at least 0.05 inside the frame."""
+  import numpy as np
+
+  inside = ((positions > 0.05) & (positions < 0.95)).all(-1)
+  matched = 0
+  for pos, num in zip(positions[inside], numbers[inside]):
+    same = grid.atom_positions[grid.atomic_numbers == num]
+    if len(same) and np.linalg.norm(same - pos, axis=1).min() < radius:
+      matched += 1
+  return matched, int(inside.sum())
+
+
+@contextlib.contextmanager
+def _recording_inputs(recorded):
+  """While open, the loop's kernel wrappers record the arguments of their
+  first call at each frame shape into recorded[(name, shape)], and launch
+  and count as ever."""
+  import inspect
+
+  import torch
+
+  from putting_dune_torch.ops import clahe_fused
+  from putting_dune_torch.ops import noise_fused
+
+  targets = ((noise_fused, 'noise_chain'), (clahe_fused, 'clahe_small'),
+             (clahe_fused, 'clahe_hist_lut'))
+
+  def recording(name, original):
+    signature = inspect.signature(original)
+
+    def wrapper(*args, **kwargs):
+      bound = signature.bind(*args, **kwargs)
+      bound.apply_defaults()
+      key = (name, tuple(bound.arguments['image'].shape))
+      if key not in recorded:
+        recorded[key] = {k: v.clone() if torch.is_tensor(v) else v
+                         for k, v in bound.arguments.items()}
+      return original(*args, **kwargs)
+
+    return wrapper
+
+  originals = [getattr(module, name) for module, name in targets]
+  for (module, name), original in zip(targets, originals):
+    setattr(module, name, recording(name, original))
+  try:
+    yield
+  finally:
+    for (module, name), original in zip(targets, originals):
+      setattr(module, name, original)
+
+
+def _hold_loop_kernels(dev, recorded, aligner_frame) -> dict:
+  """Phase 19g (see the module docstring): max|d| of each hold."""
+  import torch
+
+  from putting_dune_torch.ops import clahe_fused
+  from putting_dune_torch.ops import noise_fused
+
+  def given(name, size):
+    args = recorded.get((name, (1, size, size)))
+    check(args is not None,
+          f'19g: the loop gave {name} no (1, {size}, {size}) frame')
+    return args
+
+  gen = torch.Generator(device=dev).manual_seed(19)
+  errs = {}
+  for size in (128, 512):
+    args = given('noise_chain', size)
+    x, packed = args['image'], args['packed']
+    draws = noise_fused.sample_draws(gen, 1, size, size, dev)
+    injected = float((noise_fused.noise_chain(x, packed, draws=draws)
+                      - noise_fused.noise_chain_reference(x, packed,
+                                                          draws=draws))
+                     .abs().max())
+    seeds = torch.randint(0, 2**62, (1,), generator=gen, device=dev)
+    got = noise_fused.noise_chain(x, packed, seeds=seeds)
+    want = noise_fused.noise_chain_reference(
+        x, packed, draws=noise_fused.draws_from_seeds(seeds, 1, size, size,
+                                                      dev))
+    differ = int((got != want).sum())
+    print(f'19g noise_chain (1, {size}, {size}) on the loop\'s clean render: '
+          f'injected draws max|d| {injected:.3g} (bar 1e-5); philox draws '
+          f'against the twin fed draws_from_seeds: max|d| '
+          f'{float((got - want).abs().max()):.3g}, {differ} of '
+          f'{got.numel()} pixels differ', flush=True)
+    check(injected <= 1e-5, f'19g: noise_chain differs from its twin at '
+          f'(1, {size}, {size})')
+    check(differ <= 1e-5 * got.numel(), f'19g: noise_chain philox mode '
+          f'differs from its twin at (1, {size}, {size})')
+    errs[f'noise_chain_{size}'] = injected
+  render = given('clahe_small', 128)
+  kw = {k: render[k] for k in ('clip_limit', 'grid_size', 'nbins')}
+  frame = torch.as_tensor(aligner_frame, dtype=torch.float32, device=dev)
+  for label, x in (('a render', render['image']),
+                   ('an aligner frame', frame[None].contiguous())):
+    out, hist = clahe_fused.clahe_small(x, **kw, return_hist=True)
+    want_hist, _ = clahe_fused.hist_lut_reference(
+        x, kw['grid_size'], kw['clip_limit'], kw['nbins'])
+    err = float((out - clahe_fused.clahe_reference(x, **kw)).abs().max())
+    same = bool(torch.equal(hist, want_hist))
+    print(f'19g clahe_small (1, 128, 128) on {label}: histograms '
+          f'{"equal" if same else "DIFFER"}, max|d| {err:.3g} (bar 2e-5)',
+          flush=True)
+    check(same and err <= 2e-5,
+          f'19g: clahe_small differs from its twin on {label}')
+    errs[f'clahe_small_128 {label}'] = err
+  render = given('clahe_hist_lut', 512)
+  x = render['image']
+  kw = {k: render[k] for k in ('grid_size', 'clip_limit', 'nbins')}
+  hist, mapping = clahe_fused.clahe_hist_lut(x, **kw)
+  want_hist, want_mapping = clahe_fused.hist_lut_reference(x, **kw)
+  out = clahe_fused.clahe_remap(x, mapping)
+  map_err = float((mapping - want_mapping).abs().max())
+  err = float((out - clahe_fused.clahe_reference(x, **kw)).abs().max())
+  same = bool(torch.equal(hist, want_hist))
+  print(f'19g clahe_hist_lut + clahe_remap (1, 512, 512) on a render: '
+        f'histograms {"equal" if same else "DIFFER"}, mapping max|d| '
+        f'{map_err:.3g}, output max|d| {err:.3g} (bar 2e-5)', flush=True)
+  check(same and map_err <= 2e-5 and err <= 2e-5,
+        '19g: the clahe pair differs from its twins at (1, 512, 512)')
+  errs['clahe_pair_512'] = err
+  return errs
+
+
+def hardware_loop(dev, smi, path_launches) -> dict:
+  """Phase 19 (see the module docstring); returns the numbers it read."""
+  import tempfile
+
+  recorded = {}
+  with tempfile.TemporaryDirectory(prefix='smoke_loop_') as tmp:
+    with _recording_inputs(recorded):
+      out, aligner_frame = _hardware_loop(dev, smi, path_launches, tmp)
+  out['twins'] = _hold_loop_kernels(dev, recorded, aligner_frame)
+  return out
+
+
+def _hardware_loop(dev, smi, path_launches, tmp):
+  import numpy as np
+  import torch
+  import torch.nn.functional as F
+
+  from putting_dune_torch import eval as eval_cli
+  from putting_dune_torch import lattice as lattice_lib
+  from putting_dune_torch import microscope_agent
+  from putting_dune_torch import microscope_data as md
+  from putting_dune_torch import registry
+  from putting_dune_torch.agents import vision_planner
+  from putting_dune_torch.atom_detection import inference as detection
+  from putting_dune_torch.image_alignment import inference as alignment
+  from putting_dune_torch.imaging import clahe as clahe_lib
+  from putting_dune_torch.ops import _build
+  from putting_dune_torch.pipeline import align_trajectories
+
+  out = {}
+  torch.set_num_threads(8)
+
+  # -- 19a. the shipped aligner on the card against the port on the CPU ------
+  t0 = time.perf_counter()
+  aligner = alignment.ImageAligner.from_checkpoint(device=dev)
+  cpu_aligner = alignment.ImageAligner.from_checkpoint(device='cpu')
+  load_s = time.perf_counter() - t0
+  sequence, _ = microscope_agent.drifting_sequence(ALIGNMENT_SEEDS[0],
+                                                   device=dev)
+  aligner.reset()
+  cpu_aligner.reset()
+  _build.reset_launches()
+  drift_err = prob_err = 0.0
+  same_sets = 0
+  call_ms = []
+  for obs in sequence:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid, drift, probs = aligner(obs.image, obs.fov)
+    torch.cuda.synchronize()
+    call_ms.append(1e3 * (time.perf_counter() - t0))
+    card_drifts = aligner.last_drifts
+    cpu_grid, _, cpu_probs = cpu_aligner(obs.image, obs.fov)
+    drift_err = max(drift_err, float(np.abs(
+        card_drifts - cpu_aligner.last_drifts).max()))
+    prob_err = max(prob_err, float(np.abs(probs - cpu_probs).max()))
+    same_sets += _same_points(grid, cpu_grid)
+  counted = dict(_build.LAUNCHES)
+  path_launches['aligner_128'] = counted
+  # The whole local head (S, S, T, 3) on one stack of the sequence's frames.
+  stack = np.concatenate([cpu_aligner.preprocess(o.image)
+                          for o in sequence[-5:]], axis=-1)
+  logits_err = max(
+      float((a.cpu() - b).abs().max()) for a, b in zip(
+          aligner.forward(stack), cpu_aligner.forward(stack)))
+  stack = torch.as_tensor(stack, device=dev)
+  forward_ms = time_ms(lambda: aligner.forward(stack), repeats=20)
+  print(f'19a aligner (features (64, 128, 256, 512), 5 frames, 128^2), '
+        f'{len(sequence)} frames of a drifting sequence: card against the '
+        f'CPU: drift heads max|d| {drift_err:.3g} A (bar 1e-4), queried '
+        f'probabilities max|d| {prob_err:.3g} (bar 1e-3), local logits and '
+        f'drifts of one stack max|d| {logits_err:.3g} (bar 1e-3), detections '
+        f'equal on {same_sets} of {len(sequence)} frames; launches '
+        f'{counted}; '
+        f'forward {forward_ms:.3f} ms, whole call '
+        f'{statistics.median(call_ms):.3f} ms a frame (median; CLAHE, '
+        f'resize, stack, forward, centroids), loaded both in {load_s:.2f} s '
+        f'on {smi}', flush=True)
+  check(drift_err <= 1e-4, '19a: aligner drifts on the card differ from CPU')
+  check(prob_err <= 1e-3, '19a: aligner probabilities differ from CPU')
+  check(logits_err <= 1e-3, '19a: aligner logits differ from CPU')
+  check(same_sets == len(sequence), '19a: aligner detections differ')
+  check(counted['clahe_small'] == len(sequence),
+        '19a: clahe_small not launched once an aligner frame')
+  # One real-size frame, 1000 x 1000: padded to 1008^2 -> the split pair.
+  big = F.interpolate(torch.as_tensor(sequence[-1].image, device=dev)[
+      None, None], size=(1000, 1000), mode='bilinear',
+                      align_corners=False)[0, 0]
+  big = torch.clamp(big + 0.02 * torch.randn(
+      big.shape, generator=torch.Generator(device=dev).manual_seed(1),
+      device=dev), 0.0, 1.0).contiguous()
+  padded = clahe_lib.equalize_adapthist_padded(big[None])
+  twin = clahe_lib.equalize_adapthist_padded(big[None].cpu())
+  clahe_err = float((padded.cpu() - twin).abs().max())
+  _build.reset_launches()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  aligner(big.cpu().numpy(), sequence[-1].fov)
+  torch.cuda.synchronize()
+  big_ms = 1e3 * (time.perf_counter() - t0)
+  counted = dict(_build.LAUNCHES)
+  path_launches['aligner_1000'] = counted
+  print(f'19a aligner on one 1000 x 1000 frame (1008^2 padded CLAHE): '
+        f'{big_ms:.2f} ms, launches {counted}; padded CLAHE against its '
+        f'twin max|d| {clahe_err:.3g} (bar 2e-5)', flush=True)
+  check(counted['clahe_hist_lut'] == 1 and counted['clahe_remap'] == 1,
+        '19a: the 1000^2 frame did not take the split pair once')
+  check(clahe_err <= 2e-5, '19a: padded CLAHE differs from its twin')
+  out['aligner'] = dict(drift_err=drift_err, prob_err=prob_err,
+                        logits_err=logits_err,
+                        forward_ms=forward_ms,
+                        call_ms=statistics.median(call_ms),
+                        big_frame_ms=big_ms, clahe_err=clahe_err)
+
+  # -- 19b. do_alignment recovers the simulator's own drift ------------------
+  inc_errs, err_aligned, err_nothing = [], [], []
+  fov_err, cpu_s = 0.0, 0.0
+  for seed in ALIGNMENT_SEEDS:
+    obs, true_drift = microscope_agent.drifting_sequence(seed, device=dev)
+    trajectory = md.Trajectory(tuple(obs))
+    aligned = align_trajectories.do_alignment(
+        trajectory, align_trajectories.Args(), aligner)
+    t0 = time.perf_counter()
+    on_cpu = align_trajectories.do_alignment(
+        trajectory, align_trajectories.Args(), cpu_aligner)
+    cpu_s += time.perf_counter() - t0
+    for a, c in zip(aligned.observations, on_cpu.observations):
+      fov_err = max(fov_err, float(np.abs(np.concatenate([
+          a.fov.lower_left - c.fov.lower_left,
+          a.fov.upper_right - c.fov.upper_right])).max()))
+    recovered = np.stack([a.fov.lower_left - o.fov.lower_left
+                          for a, o in zip(aligned.observations, obs)])
+    inc_errs.append(float(np.linalg.norm(
+        np.diff(-recovered, axis=0) - np.diff(true_drift, axis=0),
+        axis=1).mean()))
+    err_aligned.append(float(np.linalg.norm(
+        recovered + true_drift, axis=1)[-3:].mean()))
+    err_nothing.append(float(np.linalg.norm(true_drift, axis=1)[-3:].mean()))
+  inc_err = float(np.mean(inc_errs))
+  last3, last3_off = float(np.mean(err_aligned)), float(np.mean(err_nothing))
+  share = float(np.mean(np.asarray(err_aligned) < 0.8 * np.asarray(
+      err_nothing)))
+  print(f'19b do_alignment, {len(ALIGNMENT_SEEDS)} sequences of 12 frames at '
+        f'0.5 A a frame: recovered FOVs on the card against the CPU max|d| '
+        f'{fov_err:.3g} A (bar {ALIGNMENT_FOV_TOL}; the CPU in {cpu_s:.2f} '
+        f's); mean increment error {inc_err:.4f} A (bar 0.35), '
+        f'mean last-three error {last3:.4f} A (bar {ALIGNMENT_LAST3_BAR:.4f}, '
+        f'the JAX mean {ALIGNMENT_JAX_LAST3[0]} plus three standard errors) '
+        f'against {last3_off:.4f} uncorrected; below 0.8x uncorrected on '
+        f'{share:.3f} of the sequences (JAX on the CPU 0.29)', flush=True)
+  check(fov_err <= ALIGNMENT_FOV_TOL,
+        '19b: do_alignment on the card differs from the CPU')
+  check(inc_err < 0.35, '19b: increment error above 0.35 A')
+  check(last3 <= ALIGNMENT_LAST3_BAR,
+        '19b: last-three error above the JAX package\'s')
+  out['do_alignment'] = dict(fov_err=fov_err, inc_err=inc_err, last3=last3,
+                             last3_uncorrected=last3_off, share_08=share)
+
+  # -- 19c. the rehearsal: microscope -> aligner -> MicroscopeAgent ---------
+  experiment = registry.create_microscope_experiment('greedy_on_neighbor')
+  _build.reset_launches()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+
+  def rehearse(seed, correct):
+    mic = microscope_agent.SimulatedMicroscope(
+        seed=seed, drift_per_frame_angstroms=0.5, image_size=128, device=dev)
+    rng = np.random.default_rng(seed)
+    agent = microscope_agent.MicroscopeAgent(rng, experiment, device=dev)
+    return microscope_agent.rehearse(
+        mic, agent, rng, aligner if correct else None, steps=REHEARSAL_STEPS)
+
+  rows, mode_s = [], {True: 0.0, False: 0.0}
+  for seed in range(REHEARSAL_SEEDS):
+    row = {}
+    for correct in (True, False):
+      t1 = time.perf_counter()
+      row[correct] = rehearse(seed, correct)
+      torch.cuda.synchronize()
+      mode_s[correct] += time.perf_counter() - t1
+    rows.append(row)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  counted = dict(_build.LAUNCHES)
+  path_launches['rehearsal_128'] = counted
+  reach = sum(r[True][0] < 0.72 for r in rows) / len(rows)
+  reach_off = sum(r[False][0] < 0.72 for r in rows) / len(rows)
+  final = float(np.mean([r[True][1] for r in rows]))
+  final_off = float(np.mean([r[False][1] for r in rows]))
+  renders = REHEARSAL_SEEDS * 2 * (REHEARSAL_STEPS + 1)
+  frames = REHEARSAL_SEEDS * REHEARSAL_STEPS
+  print(f'19c rehearsal, {REHEARSAL_SEEDS} seeds x {REHEARSAL_STEPS} steps, '
+        f'corrected and uncorrected, in {seconds:.2f} s on {smi}: the true '
+        f'silicon within 0.72 A of the goal on {reach:.3f} of the seeds '
+        f'corrected (bar {REHEARSAL_REACH_BAR:.4f}; the JAX package on the '
+        f'CPU {REHEARSAL_JAX_REACH}), {reach_off:.3f} uncorrected; mean final '
+        f'distance {final:.3f} A corrected, {final_off:.3f} uncorrected '
+        f'(the JAX package on the CPU {REHEARSAL_JAX_FINAL}); launches '
+        f'{counted} ({renders} renders + {frames} aligner frames)',
+        flush=True)
+  check(reach >= REHEARSAL_REACH_BAR, '19c: rehearsal reach share below bar')
+  check(counted['clahe_small'] == renders + frames,
+        '19c: clahe_small not launched once a render and an aligner frame')
+  check(counted['noise_chain'] == renders, '19c: noise_chain launches')
+  step_ms = {c: 1e3 * mode_s[c] / (REHEARSAL_SEEDS * REHEARSAL_STEPS)
+             for c in mode_s}
+  _, busy = busy_share(lambda: rehearse(REHEARSAL_SEEDS, True))
+  print(f'19c a rehearsal step: {step_ms[True]:.3f} ms corrected, '
+        f'{step_ms[False]:.3f} ms uncorrected (reset included); device busy '
+        f'share corrected {busy:.3f} (one more seed under torch.profiler) on '
+        f'{smi}', flush=True)
+  out['rehearsal'] = dict(seconds=seconds, reach=reach, reach_off=reach_off,
+                          final=final, final_off=final_off, step_ms=step_ms,
+                          busy=busy)
+
+  # -- 19d. AtomDetector on the card against the port on the CPU -------------
+  detector = detection.AtomDetector.from_checkpoint(
+      vision_planner.SHIPPED_DETECTOR_DIR, device=dev)
+  cpu_detector = detection.AtomDetector.from_checkpoint(
+      vision_planner.SHIPPED_DETECTOR_DIR, device='cpu')
+  lat = lattice_lib.make_lattice(50, dev)
+  images, truth = _detector_scenes(
+      torch.Generator(device=dev).manual_seed(5), lat, DETECTOR_FRAMES)
+  equal, matched, total, det_ms = 0, 0, 0, []
+  for image, (positions, numbers) in zip(images, truth):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = detector(image)
+    det_ms.append(1e3 * (time.perf_counter() - t0))
+    equal += _same_points(grid, cpu_detector(image))
+    m, n = _recall(grid, positions, numbers, radius=3.0 / 256)
+    matched, total = matched + m, total + n
+  share = equal / len(images)
+  print(f'19d AtomDetector (features (32, 64, 128, 256), 256^2) on '
+        f'{len(images)} clean generator scenes: detections equal to the CPU '
+        f'port on {share:.3f} of the frames (bar 0.99); recall '
+        f'{matched / total:.4f} ({matched} of {total} true atoms 0.05 inside '
+        f'the frame within 3 pixels, same species); '
+        f'{statistics.median(det_ms):.3f} ms a frame (median) on {smi}',
+        flush=True)
+  check(share >= 0.99, '19d: detector detections differ from the CPU')
+  out['detector'] = dict(equal_share=share, recall=matched / total,
+                         ms=statistics.median(det_ms))
+
+  # -- 19e. every microscope experiment drives the simulated microscope -----
+  control_range = [np.inf, -np.inf]
+  for name in registry.microscope_experiment_names():
+    mic = microscope_agent.SimulatedMicroscope(seed=3, device=dev)
+    rng = np.random.default_rng(0)
+    agent = microscope_agent.MicroscopeAgent(
+        rng, registry.create_microscope_experiment(name), device=dev)
+    obs = mic.reset()
+    agent.reset(rng, obs)
+    try:
+      for _ in range(5):
+        controls = agent.step(obs)
+        for c in controls:
+          control_range = [min(control_range[0], float(c.position.min())),
+                           max(control_range[1], float(c.position.max()))]
+        obs = mic.apply(controls)
+    except RuntimeError as e:
+      # The JAX package raises here too: an image policy fed the 10-dim
+      # features of MicroscopeAgent.
+      check(name == 'ppo_simple_images_tf' and '16386' in str(e),
+            f'19e: {name} raised {e}')
+      print(f'19e {name}: raises as in the JAX package ({e})', flush=True)
+  print(f'19e: {len(registry.microscope_experiment_names())} microscope '
+        f'experiments, 5 steps each; controls in [{control_range[0]:.4f}, '
+        f'{control_range[1]:.4f}]', flush=True)
+  check(0.0 <= control_range[0] and control_range[1] <= 1.0,
+        '19e: controls outside [0, 1]^2')
+
+  # -- 19f. the host eval entry point, --nobatched ---------------------------
+  host = {}
+  for name, bar, key in (('greedy_simple_rates', 1.0, None),
+                         ('ppo_simple_images_tf', 0.9, 'host_pixel_512')):
+    path = os.path.join(tmp, f'{name}.json')
+    _build.reset_launches()
+    rep = eval_cli.main(eval_cli.Args(
+        experiment_name=name, eval_suite='tiny_eval', batched=False,
+        output_json=path, device=str(dev)))
+    counted = dict(_build.LAUNCHES)
+    with open(path) as f:
+      payload = json.load(f)
+    a = rep['aggregate']
+    steps = sum(r.num_actions_taken for r in rep['results'])
+    print(f"19f host eval {name} tiny_eval --nobatched: success "
+          f"{a['average_num_times_reached_goal']}, actions "
+          f"{a['average_num_actions_taken']:.2f}, {rep['env_steps']} env "
+          f"steps in {rep['wall_seconds']:.2f} s = "
+          f"{rep['env_steps'] / rep['wall_seconds']:.1f} env steps/s at batch "
+          f"1 on {smi}; launches {counted}; --output_json keys "
+          f"{sorted(payload)}", flush=True)
+    check(a['average_num_times_reached_goal'] >= bar,
+          f'19f: {name} host success below {bar}')
+    check(sorted(payload) == ['aggregate', 'experiment', 'results', 'suite']
+          and len(payload['results']) == 10, f'19f: {name} output_json')
+    if key:
+      path_launches[key] = counted
+      # One render a step plus one a reset: noise_chain and the pair.
+      for kernel in ('noise_chain', 'clahe_hist_lut', 'clahe_remap'):
+        check(counted[kernel] == steps + 10,
+              f'19f: {kernel} not launched once a render on {name}')
+    host[name] = dict(success=a['average_num_times_reached_goal'],
+                      actions=a['average_num_actions_taken'],
+                      steps_per_s=rep['env_steps'] / rep['wall_seconds'])
+    if key:
+      _, host[name]['busy'] = busy_share(lambda: eval_cli.main(eval_cli.Args(
+          experiment_name=name, eval_suite='tiny_eval', batched=False,
+          device=str(dev))))
+      print(f"19f host eval {name}: device busy share {host[name]['busy']:.3f}"
+            f' (one more tiny_eval run under torch.profiler)', flush=True)
+  out['host_eval'] = host
+  return out, sequence[-1].image
+
+
 def main() -> None:
   import torch
 
   if not torch.cuda.is_available():
     print('FAIL: torch.cuda.is_available() is false', flush=True)
     sys.exit(2)
+  t_smoke = time.perf_counter()
   smi = nvidia_smi_line()
   print(smi, flush=True)
   print(f'python {sys.version.split()[0]} torch {torch.__version__} '
@@ -1634,7 +2208,16 @@ def main() -> None:
   print(f'training summary ({time.perf_counter() - t0:.1f} s): '
         f'{json.dumps(summary)}', flush=True)
 
-  # -- 19. kernels line --------------------------------------------------------
+  # -- 19. the hardware loop ----------------------------------------------------
+  t0 = time.perf_counter()
+  summary = hardware_loop(dev, smi, path_launches)
+  print(f'hardware loop summary ({time.perf_counter() - t0:.1f} s): '
+        f'{json.dumps(summary)}', flush=True)
+
+  print(f'phases 1-19 in {time.perf_counter() - t_smoke:.1f} s on {smi}',
+        flush=True)
+
+  # -- 20. kernels line --------------------------------------------------------
   kernels = []
   for name, (ms, plain_ms, err, bound_ms, bound_by, source) in rows.items():
     by_path = {path: counts[name] for path, counts in path_launches.items()}

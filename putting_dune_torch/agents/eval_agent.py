@@ -13,7 +13,8 @@ Three kinds, each a module here:
 
 `load_policy` reads any of them; `save_policy` writes them in the layout
 and bytes the JAX package's EvalAgent.save writes, so checkpoints cross
-between the packages both ways.
+between the packages both ways. `EvalAgent` is a loaded policy as a host
+agent (dm_env `step`) with its batched `policy()`.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from putting_dune_torch import device as device_lib
+from putting_dune_torch.agents import agent_lib
 from putting_dune_torch.agents import msgpack_reader
 from putting_dune_torch.agents import ppo
 from putting_dune_torch.io import serialization
@@ -250,3 +252,37 @@ def mean_policy(model: nn.Module):
     return out[0] if isinstance(out, tuple) else out
 
   return policy
+
+
+class EvalAgent(agent_lib.Agent):
+  """A frozen policy module as a host agent: `step` acts on one dm_env
+  timestep, `policy()` is the batched policy for the batched evaluator."""
+
+  def __init__(self, model: nn.Module):
+    self.model = model
+
+  @classmethod
+  def load(cls, load_dir: str, device=None) -> 'EvalAgent':
+    """A saved policy directory (`load_policy`) on `device`."""
+    return cls(load_policy(load_dir, device))
+
+  @property
+  def device(self) -> torch.device:
+    return next(self.model.parameters()).device
+
+  def step(self, time_step) -> np.ndarray:
+    obs = time_step.observation
+    if isinstance(obs, Mapping):
+      obs = {k: torch.as_tensor(np.asarray(v, np.float32),
+                                device=self.device)[None]
+             for k, v in obs.items()}
+    else:
+      obs = torch.as_tensor(np.asarray(obs, np.float32),
+                            device=self.device)[None]
+    return self.policy()(None, obs)[0].cpu().numpy()
+
+  def set_mode(self, mode: agent_lib.AgentMode) -> None:
+    pass
+
+  def policy(self):
+    return mean_policy(self.model)

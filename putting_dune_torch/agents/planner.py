@@ -20,12 +20,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from putting_dune_torch import device as device_lib
 from putting_dune_torch import rates as rates_lib
+from putting_dune_torch.agents import agent_lib
 
 
 def make_candidate_offsets(
@@ -283,10 +285,11 @@ class MultiDopantPlannerAgent:
 
 
 @dataclasses.dataclass
-class PlannerAgent:
+class PlannerAgent(agent_lib.Agent):
   """Registry agent over `planner_policy` (material-frame features +
   RelativeToSiliconMaterialFrameActionAdapter). `policy()` is the batched
-  policy for eval_lib.evaluate_batched."""
+  policy for eval_lib.evaluate_batched; `step` acts on one dm_env timestep
+  on `device` (CUDA unless asked otherwise; device.resolve_device)."""
 
   rate_fn: rates_lib.RateFunction
   dwell_seconds: float = 5.0
@@ -300,6 +303,7 @@ class PlannerAgent:
   num_dwells: int = 8
   image_duration_seconds: float = 2.0
   dwell_objective: str = 'per_second'
+  device: Any = None
 
   def __post_init__(self):
     self._candidates = make_candidate_offsets(
@@ -311,6 +315,16 @@ class PlannerAgent:
       self._dwell_grid = np.linspace(
           lo, hi, self.num_dwells, dtype=np.float32
       )
+
+  def step(self, time_step) -> np.ndarray:
+    obs = torch.as_tensor(
+        np.asarray(time_step.observation, np.float32).reshape(1, 10),
+        device=device_lib.resolve_device(self.device))
+    with torch.no_grad():
+      return self.policy()(None, obs)[0].cpu().numpy()
+
+  def set_mode(self, mode: agent_lib.AgentMode) -> None:
+    pass
 
   def policy(self):
     return lambda gen, obs: planner_policy(

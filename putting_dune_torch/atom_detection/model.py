@@ -48,11 +48,12 @@ class _ChannelLayerNorm(nn.Module):
 
 
 class _Block(nn.Module):
-  """3x3 'SAME' convolution + channel LayerNorm + tanh GELU."""
+  """k x k 'SAME' convolution (k odd, 3 by default) + channel LayerNorm +
+  tanh GELU."""
 
-  def __init__(self, in_channels: int, width: int):
+  def __init__(self, in_channels: int, width: int, kernel: int = 3):
     super().__init__()
-    self.conv = nn.Conv2d(in_channels, width, 3, padding=1)
+    self.conv = nn.Conv2d(in_channels, width, kernel, padding=kernel // 2)
     self.norm = _ChannelLayerNorm(width)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:

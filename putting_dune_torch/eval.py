@@ -20,6 +20,13 @@ multi_dopant_2_vision_planner_drift{,_corrected}).
 
 Runs the suite as one batch of environments (CUDA by default; raises if
 CUDA is absent unless --device=cpu) and prints the aggregate as JSON.
+--nobatched runs the JAX package's host loop instead: one episode per seed
+on the single-env wrapper, the registry's host agent acting on each
+timestep (`eval_lib.evaluate`; the multi-dopant experiments always run
+batched, as in the JAX package). --seed seeds the host agent's numpy
+generator and the wrapper; --output_json writes {experiment, suite,
+aggregate, results} with NaN as null. --mesh (data-parallel evaluation)
+is not ported: a non-empty value raises.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import time
 from typing import Optional
 
@@ -40,6 +48,10 @@ class Args:
   step_limit: int = 600
   image_size: Optional[int] = None
   device: Optional[str] = None
+  batched: bool = True
+  seed: int = 0
+  output_json: Optional[str] = None
+  mesh: str = ''
 
 
 def policy_for_agent(agent):
@@ -76,10 +88,18 @@ def main(args: Args) -> dict:
   from putting_dune_torch import registry
   from putting_dune_torch import run_helpers
 
+  if args.mesh and not args.batched:
+    raise ValueError('--mesh requires batched evaluation (drop --nobatched).')
+  if args.mesh:
+    raise NotImplementedError(
+        f'--mesh={args.mesh!r}: putting_dune_torch evaluates on one device; '
+        'the data-parallel mesh is not ported yet. Leave --mesh empty.')
   device = device_lib.resolve_device(args.device)
   seeds = eval_lib.EVAL_SUITES[args.eval_suite]
   if args.experiment_name in registry.multi_dopant_experiment_names():
     env, policy = _multi_dopant_env_and_policy(args, len(seeds), device)
+  elif not args.batched:
+    return _report(args, device, *_evaluate_host(args, seeds, device))
   else:
     experiment = registry.create_eval_experiment(args.experiment_name)
     adapters_and_goal = experiment.get_adapters_and_goal()
@@ -92,23 +112,67 @@ def main(args: Args) -> dict:
     )
   t0 = time.perf_counter()
   results = eval_lib.evaluate_batched(env, policy, seeds)
+  _synchronize(device)
+  seconds = time.perf_counter() - t0
+  env_steps = len(seeds) * max(r.num_actions_taken for r in results)
+  return _report(args, device, results, env_steps, seconds)
+
+
+def _synchronize(device) -> None:
   if device.type == 'cuda':
     import torch
 
     torch.cuda.synchronize(device)
+
+
+def _evaluate_host(args: Args, seeds, device):
+  """The host loop: (results, env steps, wall seconds)."""
+  import numpy as np
+
+  from putting_dune_torch import eval_lib
+  from putting_dune_torch import registry
+  from putting_dune_torch import run_helpers
+
+  experiment = registry.create_eval_experiment(args.experiment_name)
+  rng = np.random.default_rng(args.seed)
+  agent = registry.host_agent(
+      experiment, rng, experiment.get_adapters_and_goal(), device)
+  env = run_helpers.create_putting_dune_env(
+      args.seed, experiment.get_adapters_and_goal,
+      experiment.get_simulator_config, simulator_step_limit=args.step_limit,
+      image_size=args.image_size, device=device)
+  t0 = time.perf_counter()
+  results = eval_lib.evaluate(agent, env, seeds)
+  _synchronize(device)
   seconds = time.perf_counter() - t0
-  aggregate = eval_lib.aggregate_results(results)
-  env_steps = len(seeds) * max(r.num_actions_taken for r in results)
-  report = {
+  return results, sum(r.num_actions_taken for r in results), seconds
+
+
+def _report(args: Args, device, results, env_steps, seconds) -> dict:
+  """The report, and the JSON payload of --output_json (the JAX package's
+  keys, NaN as null)."""
+  from putting_dune_torch import eval_lib
+
+  aggregate = dataclasses.asdict(eval_lib.aggregate_results(results))
+  if args.output_json:
+    payload = _json_safe({
+        'experiment': args.experiment_name,
+        'suite': args.eval_suite,
+        'aggregate': aggregate,
+        'results': [dataclasses.asdict(r) for r in results],
+    })
+    os.makedirs(os.path.dirname(args.output_json) or '.', exist_ok=True)
+    with open(args.output_json, 'w') as f:
+      json.dump(payload, f, allow_nan=False)
+  return {
       'experiment': args.experiment_name,
       'suite': args.eval_suite,
       'device': str(device),
-      'aggregate': dataclasses.asdict(aggregate),
+      'aggregate': aggregate,
       'env_steps': env_steps,
       'wall_seconds': seconds,
+      'results': results,
   }
-  report['results'] = results
-  return report
 
 
 def _json_safe(obj):
@@ -131,6 +195,14 @@ def _parse_args(argv=None) -> Args:
                       "multi-dopant experiment's own).")
   parser.add_argument('--device', default=None,
                       help="'cuda' (default) or 'cpu'.")
+  parser.add_argument('--nobatched', dest='batched', action='store_false',
+                      help='The per-seed host loop instead of one batch.')
+  parser.add_argument('--seed', type=int, default=0)
+  parser.add_argument('--output_json', default=None)
+  parser.add_argument('--mesh', default='',
+                      help='Accepted only so that JAX command lines parse: '
+                      'any value raises (with --nobatched as in JAX; the '
+                      'data-parallel mesh is not ported).')
   return Args(**vars(parser.parse_args(argv)))
 
 

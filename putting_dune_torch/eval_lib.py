@@ -5,21 +5,27 @@ env's device; each env stops contributing once its episode ends. The
 combined budget (simulated env seconds + the batch-shared wall clock,
 600 s by default) truncates live episodes, checked every step. A policy is
 a `(gen, observation) -> action` callable or a `StatefulPolicy`, whose
-state the loop carries on the device. The host per-seed evaluator is not
-ported yet.
+state the loop carries on the device.
+
+`evaluate` is the host per-seed loop over the single-env wrapper
+(env/dm_env_wrapper.py) and a host agent's `step`: each episode's budget
+counts simulated seconds plus the agent's own wall seconds, as the JAX
+package's host evaluator does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime as dt
 import hashlib
 import logging
 import time
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from putting_dune_torch.agents import agent_lib
 from putting_dune_torch.env import env as env_lib
 
 EVAL_SUITES = {
@@ -31,7 +37,9 @@ EVAL_SUITES = {
 
 DEFAULT_TIMEOUT_SECONDS = 600.0
 
+# Provenance of a result: the two evaluators time episodes differently.
 BATCHED_EVALUATOR = 'batched(sim+wall)'
+HOST_EVALUATOR = 'host(wall+sim-time)'
 
 Policy = Callable[[torch.Generator, object], torch.Tensor]
 
@@ -204,3 +212,55 @@ def evaluate_batched(
       )
       for i, seed in enumerate(seeds)
   ]
+
+
+def evaluate(
+    agent: agent_lib.Agent,
+    env,
+    seeds: Sequence[int],
+    *,
+    timeout: dt.timedelta = dt.timedelta(minutes=10),
+    video_save_dir: Optional[str] = None,
+) -> List[EvalResult]:
+  """Host-loop evaluation, one episode per seed.
+
+  `env` is the single-env wrapper (`run_helpers.create_putting_dune_env`);
+  `agent` has the dm_env `step`. An episode ends at its LAST timestep or
+  once its simulated seconds plus the agent's wall seconds reach `timeout`.
+  """
+  if video_save_dir is not None:
+    raise NotImplementedError(
+        'video_save_dir: episode videos wait for the port of plotting_utils.')
+  agent.set_mode(agent_lib.AgentMode.EVAL)
+  results = []
+  for seed in seeds:
+    env.seed(seed)
+    time_step = env.reset()
+    agent_elapsed = 0.0
+    env_elapsed = float(env.last_elapsed_seconds)
+    num_actions = 0
+    total_reward = 0.0
+    while agent_elapsed + env_elapsed < timeout.total_seconds():
+      t0 = time.perf_counter()
+      action = agent.step(time_step)
+      agent_elapsed += time.perf_counter() - t0
+      time_step = env.step(action)
+      env_elapsed += float(env.last_elapsed_seconds)
+      num_actions += 1
+      if time_step.reward is not None:
+        total_reward += float(time_step.reward)
+      if time_step.last():
+        break
+    discount = 1.0 if time_step.discount is None else float(time_step.discount)
+    reached_goal = bool(time_step.last() and discount == 0.0)
+    results.append(EvalResult(
+        seed=seed,
+        reached_goal=reached_goal,
+        num_actions_taken=num_actions,
+        agent_seconds_to_goal=agent_elapsed if reached_goal else float('nan'),
+        environment_seconds_to_goal=(
+            env_elapsed if reached_goal else float('nan')),
+        total_reward=total_reward,
+        evaluator=HOST_EVALUATOR,
+    ))
+  return results

@@ -1,11 +1,14 @@
 """Named experiments (port of putting_dune_tpu/experiments/registry.py).
 
 The same names and compositions as the JAX package: all of its
-single-dopant eval experiments, all of its multi-dopant ones and its train
-experiments (the env a trainer builds: adapters, features and simulator). An
-experiment's `get_policy(adapters_and_goal, device)` returns a batched
-policy `(gen, observation) -> action`, or an agent whose `policy()` gives
-one (eval.py `policy_for_agent`). The multi-dopant experiments carry an
+single-dopant eval experiments, all of its multi-dopant ones, its train
+experiments (the env a trainer builds: adapters, features and simulator)
+and its microscope experiments (an agent and the adapters for the
+real-microscope loop, microscope_agent.py). An eval experiment's
+`get_policy(adapters_and_goal, device)` returns a batched policy
+`(gen, observation) -> action`, or an agent whose `policy()` gives one
+(eval.py `policy_for_agent`); `host_agent` gives the host agent (dm_env
+`step`) the host evaluator drives. The multi-dopant experiments carry an
 env factory and, unless the policy is uniform random, a
 `get_agent(device)` with the same kind of result.
 """
@@ -16,6 +19,8 @@ import dataclasses
 import functools
 import os
 from typing import Any, Callable, Optional
+
+import numpy as np
 
 from putting_dune_torch import constants
 from putting_dune_torch import lattice as lattice_lib
@@ -53,9 +58,37 @@ class TrainExperiment:
 
 @dataclasses.dataclass(frozen=True)
 class EvalExperiment:
+  """get_agent(rng, adapters_and_goal, device), where set, builds the host
+  agent; otherwise `get_policy`'s agent is also the host agent."""
+
   get_policy: Callable[[AdaptersAndGoal, Any], Callable]
   get_adapters_and_goal: Callable[[], AdaptersAndGoal]
   get_simulator_config: Callable[[], SimulatorSpec]
+  get_agent: Optional[Callable] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class MicroscopeExperiment:
+  """An agent for the real-microscope loop: get_agent(rng,
+  adapters_and_goal, device=None) -> host agent."""
+
+  get_agent: Callable
+  get_adapters_and_goal: Callable[[], AdaptersAndGoal]
+
+
+def host_agent(experiment: EvalExperiment, rng: np.random.Generator,
+               adapters_and_goal: AdaptersAndGoal, device=None
+               ) -> agent_lib.Agent:
+  """The host agent (dm_env `step`) of an eval experiment; raises
+  NotImplementedError where its agent has no host step (the vision
+  planners, as in the JAX package)."""
+  if experiment.get_agent is not None:
+    return experiment.get_agent(rng, adapters_and_goal, device)
+  agent = experiment.get_policy(adapters_and_goal, device)
+  if not isinstance(agent, agent_lib.Agent):
+    raise NotImplementedError(
+        f'{type(agent).__name__} has no host step; evaluate it batched.')
+  return agent
 
 
 def _random_policy(adapters_and_goal, device):
@@ -72,14 +105,52 @@ def _greedy_policy(adapters_and_goal, device, argmax=(1.42, 0.0)):
   return functools.partial(agent_lib.greedy_policy, argmax=argmax)
 
 
+def _relative_random_agent(rng, adapters_and_goal, device=None):
+  del device
+  spec = adapters_and_goal.action_adapter.spec()
+  return agent_lib.UniformRandomAgent(rng, spec.minimum, spec.maximum,
+                                      spec.shape)
+
+
+def _greedy_agent(rng, adapters_and_goal, device=None, argmax=(1.42, 0.0)):
+  del adapters_and_goal
+  return agent_lib.GreedyAgent(rng=rng, argmax=np.asarray(argmax),
+                               device=device)
+
+
+def _checkpoint_path(model_name: str) -> str:
+  path = os.path.join(eval_agent.MODEL_WEIGHTS_DIR, model_name)
+  if not os.path.isdir(path):
+    raise FileNotFoundError(f'No policy checkpoint at {path}.')
+  return path
+
+
 def _checkpoint_policy(model_name: str):
   def get_policy(adapters_and_goal, device):
     del adapters_and_goal
-    path = os.path.join(eval_agent.MODEL_WEIGHTS_DIR, model_name)
-    if not os.path.isdir(path):
-      raise FileNotFoundError(f'No policy checkpoint at {path}.')
-    return eval_agent.mean_policy(eval_agent.load_policy(path, device))
+    return eval_agent.mean_policy(
+        eval_agent.load_policy(_checkpoint_path(model_name), device))
   return get_policy
+
+
+@dataclasses.dataclass(frozen=True)
+class PolicyCheckpointAgent:
+  """get_agent of a shipped policy checkpoint: an `EvalAgent` over
+  `model_weights/<model_name>`; raises FileNotFoundError where the
+  directory is absent."""
+
+  model_name: str
+
+  def __call__(self, rng, adapters_and_goal, device=None):
+    del rng, adapters_and_goal
+    return eval_agent.EvalAgent.load(_checkpoint_path(self.model_name),
+                                     device)
+
+
+def _checkpoint_entry(model_name: str) -> dict:
+  """get_policy and get_agent of an eval entry over a checkpoint."""
+  return dict(get_policy=_checkpoint_policy(model_name),
+              get_agent=PolicyCheckpointAgent(model_name))
 
 
 def _load_shipped_rate_fn(device):
@@ -102,7 +173,6 @@ def _planner_agent(adapters_and_goal, device, rate_fn=None,
                     lookahead_discount=0.0, dwell_objective='per_second'):
   """Rate-aware planner; its dwell (or dwell range) is the adapter's, so
   the probabilities it optimizes are the ones the simulator realizes."""
-  del device
   adapter = adapters_and_goal.action_adapter
   dwell_range = None
   if adapter.max_dwell_seconds > adapter.min_dwell_seconds:
@@ -114,6 +184,7 @@ def _planner_agent(adapters_and_goal, device, rate_fn=None,
       lookahead_discount=lookahead_discount,
       dwell_range_seconds=dwell_range,
       dwell_objective=dwell_objective,
+      device=device,
   )
 
 
@@ -124,6 +195,7 @@ def _learned_planner_agent(adapters_and_goal, device):
   return planner_lib.PlannerAgent(
       rate_fn=_load_shipped_rate_fn(device),
       dwell_seconds=float(adapter.min_dwell_seconds),
+      device=device,
   )
 
 
@@ -254,21 +326,24 @@ _vision_from_pixels = functools.partial(
 _EVAL_EXPERIMENTS = {
     'relative_random_simple': EvalExperiment(
         get_policy=_random_policy,
+        get_agent=_relative_random_agent,
         get_adapters_and_goal=_single_silicon_goal_reaching,
         get_simulator_config=_simple_rates_config,
     ),
     'relative_random_prior_rates': EvalExperiment(
         get_policy=_random_policy,
+        get_agent=_relative_random_agent,
         get_adapters_and_goal=_single_silicon_goal_reaching,
         get_simulator_config=_human_prior_rates_config,
     ),
     'ppo_simple_images_tf': EvalExperiment(
-        get_policy=_checkpoint_policy('ppo_simple_images_tf'),
+        **_checkpoint_entry('ppo_simple_images_tf'),
         get_adapters_and_goal=_single_silicon_from_pixels,
         get_simulator_config=_simple_rates_config,
     ),
     'greedy_simple_rates': EvalExperiment(
         get_policy=_greedy_policy,
+        get_agent=_greedy_agent,
         get_adapters_and_goal=_material_frame,
         get_simulator_config=_simple_rates_config,
     ),
@@ -286,6 +361,7 @@ _EVAL_EXPERIMENTS = {
     ),
     'greedy_prior_rates': EvalExperiment(
         get_policy=_greedy_policy,
+        get_agent=_greedy_agent,
         get_adapters_and_goal=_material_frame,
         get_simulator_config=_human_prior_rates_config,
     ),
@@ -308,17 +384,18 @@ _EVAL_EXPERIMENTS = {
     # The planner distilled into a feed-forward MLP (shipped), and its
     # variable-dwell twin, whose checkpoint is not shipped.
     'planner_distilled_prior': EvalExperiment(
-        get_policy=_checkpoint_policy('planner_distilled_prior'),
+        **_checkpoint_entry('planner_distilled_prior'),
         get_adapters_and_goal=_material_frame,
         get_simulator_config=_human_prior_rates_config,
     ),
     'planner_distilled_prior_variable_time': EvalExperiment(
-        get_policy=_checkpoint_policy('planner_distilled_prior_variable_time'),
+        **_checkpoint_entry('planner_distilled_prior_variable_time'),
         get_adapters_and_goal=_material_frame_variable_dwell,
         get_simulator_config=_human_prior_rates_config,
     ),
     'greedy_aligned_prior_rates': EvalExperiment(
         get_policy=_greedy_policy,
+        get_agent=_greedy_agent,
         get_adapters_and_goal=_material_frame,
         get_simulator_config=_aligned_prior_rates_config,
     ),
@@ -355,7 +432,7 @@ _EVAL_EXPERIMENTS = {
     ),
     # The shipped policy trained under drift, on its training adapters.
     'ppo_simple_drift': EvalExperiment(
-        get_policy=_checkpoint_policy('ppo_simple_drift'),
+        **_checkpoint_entry('ppo_simple_drift'),
         get_adapters_and_goal=_single_silicon_goal_reaching,
         get_simulator_config=_simple_rates_drift_config,
     ),
@@ -405,7 +482,7 @@ _ZOO = {
 }
 _EVAL_EXPERIMENTS.update({
     f'eval_{name}': EvalExperiment(
-        get_policy=_checkpoint_policy(checkpoint),
+        **_checkpoint_entry(checkpoint),
         get_adapters_and_goal=functools.partial(
             _single_silicon_goal_reaching, *adapter),
         get_simulator_config=_human_prior_rates_config,
@@ -694,3 +771,73 @@ def create_multi_dopant_experiment(name: str) -> MultiDopantExperiment:
 
 def multi_dopant_experiment_names():
   return tuple(_MULTI_DOPANT_EXPERIMENTS)
+
+
+# -------------------- microscope experiments ----------------------------------
+
+
+def _microscope_learned_planner(rng, adapters_and_goal, device=None):
+  """The planner over the shipped distilled neural rate model; on real
+  hardware the planning model is the learned rate predictor."""
+  del rng
+  return _learned_planner_agent(adapters_and_goal, device)
+
+
+def _greedy(argmax):
+  return functools.partial(_greedy_agent, argmax=argmax)
+
+
+_MICROSCOPE_EXPERIMENTS = {
+    'relative_random': MicroscopeExperiment(
+        get_agent=_relative_random_agent,
+        get_adapters_and_goal=_single_silicon_goal_reaching,
+    ),
+    'relative_random_long': MicroscopeExperiment(
+        get_agent=_relative_random_agent,
+        get_adapters_and_goal=functools.partial(
+            _single_silicon_goal_reaching, 1.0, 5.0, 2 * BOND),
+    ),
+    'relative_random_extra_long': MicroscopeExperiment(
+        get_agent=_relative_random_agent,
+        get_adapters_and_goal=functools.partial(
+            _single_silicon_goal_reaching, 1.0, 5.0, 3 * BOND),
+    ),
+    **{
+        name: MicroscopeExperiment(
+            get_agent=_greedy(argmax), get_adapters_and_goal=_material_frame)
+        for name, argmax in (
+            ('greedy_on_neighbor', (1.42, 0.0)),
+            ('greedy_short_of_neighbor', (0.58, 0.0)),
+            ('greedy_on_neighbor_offset_horizontally', (1.42, 0.42)),
+            ('greedy_from_learned_rates_v3', (1.8686869, 0.0)),
+            ('greedy_from_learned_rates_v5', (2.1717172, -0.15151516)),
+        )
+    },
+    'planner_learned_rates': MicroscopeExperiment(
+        get_agent=_microscope_learned_planner,
+        get_adapters_and_goal=_material_frame,
+    ),
+    'ppo_simple_images_tf': MicroscopeExperiment(
+        get_agent=PolicyCheckpointAgent('ppo_simple_images_tf'),
+        get_adapters_and_goal=_single_silicon_from_pixels,
+    ),
+    # The shipped vector checkpoints on the adapters of their zoo entries.
+    **{
+        name: MicroscopeExperiment(
+            get_agent=PolicyCheckpointAgent(checkpoint),
+            get_adapters_and_goal=functools.partial(
+                _single_silicon_goal_reaching, *adapter),
+        )
+        for name, (checkpoint, adapter) in _ZOO.items()
+    },
+}
+
+
+def create_microscope_experiment(name: str) -> MicroscopeExperiment:
+  if name not in _MICROSCOPE_EXPERIMENTS:
+    raise ValueError(f'Unknown microscope experiment {name}.')
+  return _MICROSCOPE_EXPERIMENTS[name]
+
+
+def microscope_experiment_names():
+  return tuple(_MICROSCOPE_EXPERIMENTS)

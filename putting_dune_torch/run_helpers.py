@@ -1,5 +1,5 @@
-"""Environment factory (port of putting_dune_tpu/run_helpers.py
-`create_batched_env`)."""
+"""Environment factories (port of putting_dune_tpu/run_helpers.py): the
+batched environment, and the single one behind the dm_env surface."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ from typing import Optional
 from putting_dune_torch import device as device_lib
 from putting_dune_torch import lattice as lattice_lib
 from putting_dune_torch import simulator as simulator_lib
+from putting_dune_torch.env import dm_env_wrapper
 from putting_dune_torch.env import env as env_lib
 
 
@@ -42,3 +43,20 @@ def create_batched_env(
       batch_size=batch_size,
       device=device,
   )
+
+
+def create_putting_dune_env(
+    seed: int,
+    get_adapters_and_goal,
+    get_simulator_config,
+    *,
+    simulator_step_limit: Optional[int] = 600,
+    image_size: Optional[int] = None,
+    device=None,
+) -> dm_env_wrapper.DmEnvWrapper:
+  """The single environment with the dm_env surface and a step limit, on
+  `device` (CUDA unless asked otherwise)."""
+  env = create_batched_env(
+      get_adapters_and_goal, get_simulator_config, batch_size=1,
+      step_limit=simulator_step_limit, image_size=image_size, device=device)
+  return dm_env_wrapper.DmEnvWrapper(env, seed=seed)

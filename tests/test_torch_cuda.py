@@ -539,3 +539,44 @@ def test_pixel_ppo_gradient_steps_on_cuda_match_cpu(cuda):
   want_params, want_loss = _pixel_learn_on('cpu')
   assert torch_toy_env.max_tree_diff(got_params, want_params) <= 1e-4
   assert abs(got_loss - want_loss) <= 1e-4
+
+
+def test_image_aligner_on_the_card_matches_the_cpu(cuda):
+  """The shipped aligner on CUDA (clahe_small, full-f32 convolutions)
+  against the port on the CPU: drifts within 1e-4 A, equal detections."""
+  from putting_dune_torch import microscope_agent
+  from putting_dune_torch.image_alignment import inference
+
+  on_card = inference.ImageAligner.from_checkpoint(device=cuda)
+  on_cpu = inference.ImageAligner.from_checkpoint(device='cpu')
+  _build.reset_launches()
+  sequence, _ = microscope_agent.drifting_sequence(11, 6, device='cpu')
+  for obs in sequence:
+    a_grid, a_drift, a_probs = on_card(obs.image, obs.fov)
+    b_grid, b_drift, b_probs = on_cpu(obs.image, obs.fov)
+    assert np.abs(a_drift - b_drift).max() <= 1e-4
+    assert np.abs(a_probs - b_probs).max() <= 1e-3
+    assert sorted(map(tuple, np.round(a_grid.atom_positions, 9))) == sorted(
+        map(tuple, np.round(b_grid.atom_positions, 9)))
+  assert _build.LAUNCHES['clahe_small'] == 6
+
+
+def test_atom_detector_on_the_card_matches_the_cpu(cuda):
+  from putting_dune_torch import lattice
+  from putting_dune_torch.agents import vision_planner
+  from putting_dune_torch.atom_detection import data
+  from putting_dune_torch.atom_detection import inference
+
+  on_card = inference.AtomDetector.from_checkpoint(
+      vision_planner.SHIPPED_DETECTOR_DIR, device=cuda)
+  on_cpu = inference.AtomDetector.from_checkpoint(
+      vision_planner.SHIPPED_DETECTOR_DIR, device='cpu')
+  gen = torch.Generator(device=cuda).manual_seed(0)
+  batch = data.sample_batch(gen, lattice.make_lattice(50, cuda), batch_size=8,
+                            image_size=256, noisy=True)
+  equal = 0
+  for image in batch['image'].cpu().numpy():
+    a, b = on_card(image), on_cpu(image)
+    equal += sorted(map(tuple, np.round(a.atom_positions, 9))) == sorted(
+        map(tuple, np.round(b.atom_positions, 9)))
+  assert equal >= 7

@@ -67,7 +67,8 @@ def _gen(seed):
 
 
 def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
-  banned = ('jax', 'flax', 'putting_dune_tpu', 'optax', 'orbax')
+  banned = ('jax', 'flax', 'putting_dune_tpu', 'optax', 'orbax', 'cv2',
+            'sklearn', 'dm_env', 'google', 'matplotlib', 'networkx')
   sources = sorted((REPO / 'putting_dune_torch').rglob('*.py'))
   sources.append(REPO / 'chip_smoke.py')
   assert len(sources) > 30
@@ -78,6 +79,15 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
   assert 'putting_dune_torch/io/serialization.py' in names
   for module in ('distill', 'train_ppo', 'ppo', 'eval_agent'):
     assert f'putting_dune_torch/agents/{module}.py' in names
+  for module in ('microscope_data', 'microscope_agent',
+                 'alignment/__init__', 'alignment/classical',
+                 'image_alignment/__init__', 'image_alignment/model',
+                 'image_alignment/train', 'image_alignment/inference',
+                 'atom_detection/inference', 'imaging/morphology',
+                 'env/dm_env_wrapper', 'pipeline/__init__',
+                 'pipeline/align_trajectories',
+                 'pipeline/trajectories_to_transitions'):
+    assert f'putting_dune_torch/{module}.py' in names
   for path in sources:
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
