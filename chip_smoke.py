@@ -148,7 +148,33 @@ Phases (any failure exits non-zero before the final line):
       aligner frame, the pair on a (1, 512, 512) render (histograms equal,
       output within 2e-5 of `clahe_reference`); every timing printed with
       the card's name and power limit;
-  20. a `kernels` JSON line; 21. the result JSON line, last.
+  20. perception training at the shipped widths (only steps cut): (a) the
+      shipped detector's noise-robust fine-tune (features (64, ..., 1024),
+      256^2, batch 32, noisy_fraction 0.4, class weights (0.2, 1, 10), lr
+      1e-4, seed 13; 2 epochs x 8 steps, 4 eval steps): the fine-tuned
+      pixel accuracy on fixed noisy batches at least
+      `DETECTOR_FINETUNE_BAR` (the shipped model's printed beside it), the
+      kept best checkpoint the one `best_fn` picks and `load_params`'s,
+      `save_params_msgpack` -> `AtomDetector` giving the trained logits
+      bit for bit; (b) the shipped aligner's registration fine-tune
+      (features (64, ..., 512), 128^2, 5 frames, batch 32,
+      registration_noise 0.35, inference preprocessing, seed_fraction
+      0.25; 8 steps, 4 eval steps): the drift error on fixed stacks before
+      and after, after at most `ALIGNER_FINETUNE_BAR`, save -> reload bit
+      for bit; (c) the shipped graph aligner below the zero predictor's
+      drift error on fixed batches, and a fresh trainer (the Config
+      defaults, 3 x 20 steps) below `GRAPH_TRAIN_BAR`; (d) the train CLI
+      and `save_model` in subprocesses; for each trainer, one train step
+      of the trained state with every parameter held to AdamW's update
+      computed in float64 from the optimizer's moments and the card's
+      gradients (within 1e-3 lr plus float32 rounding), then its train
+      step timed (CUDA events, the data step apart; the detector's also
+      with TF32),
+      its busy share and device operations a step; the trainers' kernel
+      launches under `perception_training`; (e) `noise_chain`, the pair
+      and `clahe_small` against their twins on the frames the trainers
+      gave them, at (32, 256, 256) and (32, 128, 128);
+  21. a `kernels` JSON line; 22. the result JSON line, last.
 
 It imports nothing of JAX or of putting_dune_tpu (the shipped weights are
 read as data).
@@ -311,6 +337,27 @@ ALIGNMENT_LAST3_BAR = ALIGNMENT_JAX_LAST3[0] + 3 * ALIGNMENT_JAX_LAST3[1] / (
 # Phase 19d: generator scenes for the detector on the card against the CPU
 # (>= 0.99 of them equal: all of them at 50).
 DETECTOR_FRAMES = 50
+
+# Phase 20 (perception training at the shipped widths) holds each trainer
+# to bars from `scripts/perception_bars.py`: the same recipes on the CPU at
+# batch 8, each package in its own process, scored on PERCEPTION_EVAL_BATCHES
+# fixed batches from the seed PERCEPTION_EVAL_SEED. The detector's noisy
+# pixel accuracy after the fine-tune read 0.8492 (JAX; shipped 0.8492) and
+# 0.8501 (port; shipped 0.8485): the bar is the lower less 0.02, the margin
+# of the generator bars above. The aligner's drift error after its
+# fine-tune read 0.0703 A (JAX; shipped 0.0657) and 0.0736 A (port;
+# shipped 0.0598): the fine-tune at lr 1e-3 on converged weights raises it
+# by 0.005-0.014 A in 8 steps, so the bar is twice the higher reading,
+# still a fifth of the zero predictor's error. The shipped graph aligner
+# must beat the zero predictor (JAX 0.0385 against 0.3609 A, port 0.0728
+# against 0.4027 A on their CPU batches).
+PERCEPTION_EVAL_SEED = 1000
+PERCEPTION_EVAL_BATCHES = 4
+DETECTOR_FINETUNE_BAR = min(0.8492, 0.8501) - 0.02
+ALIGNER_FINETUNE_BAR = 2 * max(0.0703, 0.0736)
+# The JAX package's test of the graph trainer holds a small run below 2 A.
+GRAPH_TRAIN_BAR = 2.0
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # The pallas_call sites each kernel covers (file:line, further lines of
 # the same file after commas).
@@ -1042,76 +1089,104 @@ def _recording_inputs(recorded):
       setattr(module, name, original)
 
 
-def _hold_loop_kernels(dev, recorded, aligner_frame) -> dict:
-  """Phase 19g (see the module docstring): max|d| of each hold."""
+def _hold_noise_chain(dev, args, label, gen) -> float:
+  """noise_chain on recorded inputs against its twin: injected draws
+  within 1e-5, and in Philox mode against the twin fed `draws_from_seeds`
+  (at most 1e-5 of the pixels may differ). Returns the injected max|d|."""
+  import torch
+
+  from putting_dune_torch.ops import noise_fused
+
+  x, packed = args['image'], args['packed']
+  b, h, w = x.shape
+  draws = noise_fused.sample_draws(gen, b, h, w, dev)
+  injected = float((noise_fused.noise_chain(x, packed, draws=draws)
+                    - noise_fused.noise_chain_reference(x, packed,
+                                                        draws=draws))
+                   .abs().max())
+  seeds = torch.randint(0, 2**62, (b,), generator=gen, device=dev)
+  got = noise_fused.noise_chain(x, packed, seeds=seeds)
+  want = noise_fused.noise_chain_reference(
+      x, packed, draws=noise_fused.draws_from_seeds(seeds, b, h, w, dev))
+  differ = int((got != want).sum())
+  print(f'{label} noise_chain {tuple(x.shape)}: injected draws max|d| '
+        f'{injected:.3g} (bar 1e-5); philox draws against the twin fed '
+        f'draws_from_seeds: max|d| {float((got - want).abs().max()):.3g}, '
+        f'{differ} of {got.numel()} pixels differ', flush=True)
+  check(injected <= 1e-5, f'{label}: noise_chain differs from its twin at '
+        f'{tuple(x.shape)}')
+  check(differ <= 1e-5 * got.numel(), f'{label}: noise_chain philox mode '
+        f'differs from its twin at {tuple(x.shape)}')
+  return injected
+
+
+def _hold_clahe_small(x, kw, label) -> float:
+  """clahe_small against its twins: histograms equal, output within
+  2e-5 of `clahe_reference`. Returns the output's max|d|."""
   import torch
 
   from putting_dune_torch.ops import clahe_fused
-  from putting_dune_torch.ops import noise_fused
 
-  def given(name, size):
-    args = recorded.get((name, (1, size, size)))
-    check(args is not None,
-          f'19g: the loop gave {name} no (1, {size}, {size}) frame')
-    return args
+  out, hist = clahe_fused.clahe_small(x, **kw, return_hist=True)
+  want_hist, _ = clahe_fused.hist_lut_reference(
+      x, kw['grid_size'], kw['clip_limit'], kw['nbins'])
+  err = float((out - clahe_fused.clahe_reference(x, **kw)).abs().max())
+  same = bool(torch.equal(hist, want_hist))
+  print(f'{label}: histograms {"equal" if same else "DIFFER"}, max|d| '
+        f'{err:.3g} (bar 2e-5)', flush=True)
+  check(same and err <= 2e-5, f'{label}: clahe_small differs from its twin')
+  return err
 
-  gen = torch.Generator(device=dev).manual_seed(19)
-  errs = {}
-  for size in (128, 512):
-    args = given('noise_chain', size)
-    x, packed = args['image'], args['packed']
-    draws = noise_fused.sample_draws(gen, 1, size, size, dev)
-    injected = float((noise_fused.noise_chain(x, packed, draws=draws)
-                      - noise_fused.noise_chain_reference(x, packed,
-                                                          draws=draws))
-                     .abs().max())
-    seeds = torch.randint(0, 2**62, (1,), generator=gen, device=dev)
-    got = noise_fused.noise_chain(x, packed, seeds=seeds)
-    want = noise_fused.noise_chain_reference(
-        x, packed, draws=noise_fused.draws_from_seeds(seeds, 1, size, size,
-                                                      dev))
-    differ = int((got != want).sum())
-    print(f'19g noise_chain (1, {size}, {size}) on the loop\'s clean render: '
-          f'injected draws max|d| {injected:.3g} (bar 1e-5); philox draws '
-          f'against the twin fed draws_from_seeds: max|d| '
-          f'{float((got - want).abs().max()):.3g}, {differ} of '
-          f'{got.numel()} pixels differ', flush=True)
-    check(injected <= 1e-5, f'19g: noise_chain differs from its twin at '
-          f'(1, {size}, {size})')
-    check(differ <= 1e-5 * got.numel(), f'19g: noise_chain philox mode '
-          f'differs from its twin at (1, {size}, {size})')
-    errs[f'noise_chain_{size}'] = injected
-  render = given('clahe_small', 128)
-  kw = {k: render[k] for k in ('clip_limit', 'grid_size', 'nbins')}
-  frame = torch.as_tensor(aligner_frame, dtype=torch.float32, device=dev)
-  for label, x in (('a render', render['image']),
-                   ('an aligner frame', frame[None].contiguous())):
-    out, hist = clahe_fused.clahe_small(x, **kw, return_hist=True)
-    want_hist, _ = clahe_fused.hist_lut_reference(
-        x, kw['grid_size'], kw['clip_limit'], kw['nbins'])
-    err = float((out - clahe_fused.clahe_reference(x, **kw)).abs().max())
-    same = bool(torch.equal(hist, want_hist))
-    print(f'19g clahe_small (1, 128, 128) on {label}: histograms '
-          f'{"equal" if same else "DIFFER"}, max|d| {err:.3g} (bar 2e-5)',
-          flush=True)
-    check(same and err <= 2e-5,
-          f'19g: clahe_small differs from its twin on {label}')
-    errs[f'clahe_small_128 {label}'] = err
-  render = given('clahe_hist_lut', 512)
-  x = render['image']
-  kw = {k: render[k] for k in ('grid_size', 'clip_limit', 'nbins')}
+
+def _hold_clahe_pair(args, label) -> float:
+  """clahe_hist_lut + clahe_remap against their twins: histograms equal,
+  mapping and output within 2e-5. Returns the output's max|d|."""
+  import torch
+
+  from putting_dune_torch.ops import clahe_fused
+
+  x = args['image']
+  kw = {k: args[k] for k in ('grid_size', 'clip_limit', 'nbins')}
   hist, mapping = clahe_fused.clahe_hist_lut(x, **kw)
   want_hist, want_mapping = clahe_fused.hist_lut_reference(x, **kw)
   out = clahe_fused.clahe_remap(x, mapping)
   map_err = float((mapping - want_mapping).abs().max())
   err = float((out - clahe_fused.clahe_reference(x, **kw)).abs().max())
   same = bool(torch.equal(hist, want_hist))
-  print(f'19g clahe_hist_lut + clahe_remap (1, 512, 512) on a render: '
-        f'histograms {"equal" if same else "DIFFER"}, mapping max|d| '
-        f'{map_err:.3g}, output max|d| {err:.3g} (bar 2e-5)', flush=True)
+  print(f'{label} {tuple(x.shape)}: histograms '
+        f'{"equal" if same else "DIFFER"}, mapping max|d| {map_err:.3g}, '
+        f'output max|d| {err:.3g} (bar 2e-5)', flush=True)
   check(same and map_err <= 2e-5 and err <= 2e-5,
-        '19g: the clahe pair differs from its twins at (1, 512, 512)')
-  errs['clahe_pair_512'] = err
+        f'{label}: the clahe pair differs from its twins at {tuple(x.shape)}')
+  return err
+
+
+def _recorded(recorded, name, shape, phase):
+  args = recorded.get((name, shape))
+  check(args is not None, f'{phase}: the path gave {name} no {shape} frame')
+  return args
+
+
+def _hold_loop_kernels(dev, recorded, aligner_frame) -> dict:
+  """Phase 19g (see the module docstring): max|d| of each hold."""
+  import torch
+
+  gen = torch.Generator(device=dev).manual_seed(19)
+  errs = {}
+  for size in (128, 512):
+    args = _recorded(recorded, 'noise_chain', (1, size, size), '19g')
+    errs[f'noise_chain_{size}'] = _hold_noise_chain(
+        dev, args, "19g on the loop's clean render:", gen)
+  render = _recorded(recorded, 'clahe_small', (1, 128, 128), '19g')
+  kw = {k: render[k] for k in ('clip_limit', 'grid_size', 'nbins')}
+  frame = torch.as_tensor(aligner_frame, dtype=torch.float32, device=dev)
+  for label, x in (('a render', render['image']),
+                   ('an aligner frame', frame[None].contiguous())):
+    errs[f'clahe_small_128 {label}'] = _hold_clahe_small(
+        x, kw, f'19g clahe_small (1, 128, 128) on {label}')
+  errs['clahe_pair_512'] = _hold_clahe_pair(
+      _recorded(recorded, 'clahe_hist_lut', (1, 512, 512), '19g'),
+      '19g clahe_hist_lut + clahe_remap on a render')
   return errs
 
 
@@ -1429,6 +1504,369 @@ def _hardware_loop(dev, smi, path_launches, tmp):
             f' (one more tiny_eval run under torch.profiler)', flush=True)
   out['host_eval'] = host
   return out, sequence[-1].image
+
+
+def device_kernels(fn) -> int:
+  """Device operations (kernels, copies, fills) one call of fn runs, from a
+  torch.profiler CUDA trace."""
+  import torch
+  from torch.profiler import ProfilerActivity
+  from torch.profiler import profile
+
+  overhead = ('Command Buffer Full', 'Buffer Flush', 'Activity Buffer Request')
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  return sum(e.count for e in prof.key_averages()
+             if e.device_time_total > 0 and e.key not in overhead)
+
+
+def _hold_adamw_step(label, state, step, batch) -> float:
+  """One train step of a trained state on the card, every parameter held
+  to optax's AdamW update computed in float64 from the optimizer's moments
+  before the step and the card's gradients: m = b1 m + (1 - b1) g, v = b2 v
+  + (1 - b2) g^2, p -= lr (m / (1 - b1^t) / (sqrt(v / (1 - b2^t)) + eps) +
+  wd p). Within 1e-3 lr plus 2^-22 |p| (float32 rounding): a step that
+  moves nothing, or moves by another rule, is off by about lr. Returns the
+  largest error in units of lr."""
+  import torch
+
+  opt = state.optimizer
+  (group,) = opt.param_groups
+  lr, wd, eps = group['lr'], group['weight_decay'], group['eps']
+  b1, b2 = group['betas']
+  before = {}
+  for p in state.model.parameters():
+    moments = opt.state.get(p, {})
+    before[p] = [p.detach().double()] + [
+        moments[k].double() if k in moments else torch.zeros_like(
+            p, dtype=torch.float64) for k in ('exp_avg', 'exp_avg_sq')] + [
+                float(moments.get('step', 0))]
+  step(batch)
+  worst = 0.0
+  for p, (p0, m, v, t) in before.items():
+    g = p.grad.double()
+    t += 1
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * g * g
+    want = p0 - lr * (m / (1 - b1**t) / (torch.sqrt(v / (1 - b2**t)) + eps)
+                      + wd * p0)
+    err = (p.detach().double() - want).abs()
+    check(bool((err <= 1e-3 * lr + 2.0**-22 * p0.abs()).all()),
+          f'20 {label}: a parameter did not take the AdamW step (max '
+          f'error {float(err.max()) / lr:.3g} lr)')
+    worst = max(worst, float(err.max()) / lr)
+  print(f'20 {label}: one train step of the trained state takes AdamW\'s '
+        f'update on every parameter (max error {worst:.3g} lr, lr {lr:g}, '
+        f'step {int(t)})', flush=True)
+  return worst
+
+
+def _time_train_step(label, smi, state, step, stream, tf32_step=None) -> dict:
+  """The AdamW check above on one fixed batch, then ms of a train step on
+  it (CUDA events, median of 10), of the data step that makes a batch
+  apart, the device busy share of three steps with their data, the device
+  operations of one step, and the peak device memory of the full-f32
+  steps."""
+  import torch
+
+  batch = next(stream)
+  adamw_err = _hold_adamw_step(label, state, step, batch)
+  torch.cuda.reset_peak_memory_stats()
+  out = {'adamw_err_lr': adamw_err,
+         'data_ms': time_ms(lambda: next(stream), repeats=10, warmup=2),
+         'step_ms': time_ms(lambda: step(batch), repeats=10, warmup=2),
+         'peak_gb': torch.cuda.max_memory_allocated() / 1e9}
+  if tf32_step is not None:
+    out['step_tf32_ms'] = time_ms(lambda: tf32_step(batch), repeats=10,
+                                  warmup=2)
+  wall, out['busy'] = busy_share(
+      lambda: [step(next(stream)) for _ in range(3)])
+  out['step_device_ops'] = device_kernels(lambda: step(batch))
+  out['data_device_ops'] = device_kernels(lambda: next(stream))
+  tf32 = (f", TF32 {out['step_tf32_ms']:.3f} ms" if tf32_step is not None
+          else '')
+  print(f"20 {label}: train step {out['step_ms']:.3f} ms full f32{tf32}; "
+        f"data step {out['data_ms']:.3f} ms; busy share {out['busy']:.3f} "
+        f"over 3 steps with their data ({wall:.3f} s); device ops "
+        f"{out['step_device_ops']} a train step, {out['data_device_ops']} a "
+        f"data step; peak memory {out['peak_gb']:.2f} GB; on {smi}",
+        flush=True)
+  return out
+
+
+def perception_training(dev, smi, path_launches) -> dict:
+  """Phase 20 (see the module docstring); returns the numbers it read. Its
+  workdirs are a temporary directory, removed after."""
+  import tempfile
+
+  recorded = {}
+  with tempfile.TemporaryDirectory(prefix='smoke_perception_') as tmp:
+    with _recording_inputs(recorded):
+      out = _perception_training(dev, smi, path_launches, tmp)
+  out['twins'] = _hold_trainer_kernels(dev, recorded)
+  return out
+
+
+def _perception_training(dev, smi, path_launches, tmp) -> dict:
+  import numpy as np
+  import torch
+
+  from putting_dune_torch.agents import vision_planner
+  from putting_dune_torch.atom_detection import data as det_data
+  from putting_dune_torch.atom_detection import inference as det_inference
+  from putting_dune_torch.atom_detection import model as det_model
+  from putting_dune_torch.atom_detection import train as det_train
+  from putting_dune_torch.graph_alignment import data as graph_data
+  from putting_dune_torch.graph_alignment import model as graph_model
+  from putting_dune_torch.graph_alignment import train as graph_train
+  from putting_dune_torch.image_alignment import data as align_data
+  from putting_dune_torch.image_alignment import inference as align_inference
+  from putting_dune_torch.image_alignment import model as align_model
+  from putting_dune_torch.image_alignment import train as align_train
+  from putting_dune_torch.io import serialization
+  from putting_dune_torch.ops import _build
+  from putting_dune_torch.utils import training
+
+  out = {}
+  # Deterministic cuDNN algorithms, so that equal weights give equal bits.
+  exact = dict(enabled=True, benchmark=False, deterministic=True,
+               allow_tf32=False)
+  counted = {}
+
+  def count_launches():
+    for name, n in _build.LAUNCHES.items():
+      counted[name] = counted.get(name, 0) + n
+
+  # -- 20a. the detector: the shipped noise-robust fine-tune -------------------
+  t0 = time.perf_counter()
+  shipped_dir = vision_planner.SHIPPED_DETECTOR_DIR
+  config = det_train.Config(
+      workdir=os.path.join(tmp, 'det'), image_size=256, batch_size=32,
+      epochs=2, steps_per_epoch=8, eval_steps=4, noisy_images=True,
+      noisy_fraction=0.4, class_weights=(0.2, 1.0, 10.0), learning_rate=1e-4,
+      features=tuple(det_train.load_arch(shipped_dir)['features']),
+      init_params_from=shipped_dir, seed=13)
+  evals = det_data.dataset_iterator(PERCEPTION_EVAL_SEED, batch_size=32,
+                                    image_size=256, noisy=True, device=dev)
+  eval_batches = [next(evals) for _ in range(PERCEPTION_EVAL_BATCHES)]
+  shipped = det_train.create_state(config, dev)
+  shipped.model.load_state_dict(det_model.params_from_flax(
+      det_train.load_params(shipped_dir)))
+  accuracy = lambda s: float(torch.stack(  # noqa: E731
+      [det_train.eval_step(s, b) for b in eval_batches]).mean())
+  acc_shipped = accuracy(shipped)
+  history = []
+  _build.reset_launches()
+  t1 = time.perf_counter()
+  state = det_train.train(config, device=dev,
+                          progress=lambda e, m: history.append(m))
+  torch.cuda.synchronize()
+  train_s = time.perf_counter() - t1
+  count_launches()
+  acc_trained = accuracy(state)
+  print(f'20a detector fine-tune (features {config.features}, 256^2, batch '
+        f'32, 2 x 8 steps, 4 eval steps): {train_s:.2f} s; epochs '
+        f'{json.dumps(history)}; pixel accuracy on {len(eval_batches)} fixed '
+        f'noisy batches: shipped {acc_shipped:.4f}, fine-tuned '
+        f'{acc_trained:.4f} (bar {DETECTOR_FINETUNE_BAR:.4f}); launches '
+        f'{dict(_build.LAUNCHES)}', flush=True)
+  check(all(np.isfinite(m['loss']) for m in history),
+        '20a: detector loss not finite')
+  check(acc_trained >= DETECTOR_FINETUNE_BAR,
+        '20a: the fine-tuned detector is below its accuracy bar')
+  # The kept checkpoint best_fn picks (orbax: ties to the later step).
+  manager = training.manager(config.workdir, det_train.best_fn)
+  top = max(m['accuracy'] for m in history)
+  want_best = max(e for e, m in enumerate(history) if m['accuracy'] == top)
+  check(manager.best_step() == want_best,
+        f'20a: best checkpoint {manager.best_step()}, best_fn {want_best}')
+  restored = det_model.params_from_flax(det_train.load_params(config.workdir))
+  check(all(torch.equal(restored[k], v.cpu()) for k, v in
+            manager.restore(want_best)['model'].items()),
+        '20a: load_params is not the best checkpoint')
+  # save_params_msgpack -> AtomDetector: the trained logits, bit for bit.
+  art = os.path.join(tmp, 'det_artifact')
+  os.makedirs(art)
+  det_train.save_params_msgpack(state.model, art, config)
+  detector = det_inference.AtomDetector.from_checkpoint(art, device=dev)
+  x = eval_batches[0]['image'][:8]
+  with torch.no_grad(), torch.backends.cudnn.flags(**exact):
+    trained, reloaded = state.model(x), detector.module(x)
+  same = torch.equal(trained, reloaded)
+  print(f'20a save_params_msgpack -> AtomDetector: logits '
+        f'{"equal" if same else "DIFFER"} (max|d| '
+        f'{float((trained - reloaded).abs().max()):.3g}); best checkpoint '
+        f'step {want_best} restored', flush=True)
+  check(same, '20a: the saved detector does not give the trained logits')
+  stream = det_data.dataset_iterator(
+      7, batch_size=32, image_size=256, noisy=True, device=dev)
+  cw = config.class_weights
+  out['detector'] = dict(
+      shipped_accuracy=acc_shipped, trained_accuracy=acc_trained,
+      train_seconds=train_s, **_time_train_step(
+          'detector (32, 256, 256, 1)', smi, state,
+          lambda b: det_train.train_step(state, b, cw),
+          stream,
+          lambda b: det_train.train_step(state, b, cw, allow_tf32=True)))
+  print(f'20a: {time.perf_counter() - t0:.1f} s', flush=True)
+
+  # -- 20b. the image aligner: the shipped registration fine-tune -------------
+  t0 = time.perf_counter()
+  shipped_dir = align_inference.SHIPPED_ALIGNER_DIR
+  arch = align_train.load_arch(shipped_dir)
+  config = align_train.Config(
+      workdir=os.path.join(tmp, 'align'), image_size=128, batch_size=32,
+      epochs=1, steps_per_epoch=8, eval_steps=4,
+      num_frames=arch['num_frames'], features=tuple(arch['features']),
+      registration_noise=0.35, inference_preprocessing=True,
+      seed_fraction=0.25, init_params_from=shipped_dir)
+  stacks = dict(batch_size=32, image_size=128, num_frames=config.num_frames,
+                registration_noise=0.35, inference_preprocessing=True,
+                seed_fraction=0.25, device=dev)
+  evals = align_data.dataset_iterator(PERCEPTION_EVAL_SEED, **stacks)
+  eval_batches = [next(evals) for _ in range(PERCEPTION_EVAL_BATCHES)]
+  shipped = align_train.create_state(config, dev)
+  shipped.model.load_state_dict(align_model.params_from_flax(
+      align_train.load_params(shipped_dir)))
+  drift_error = lambda s: float(torch.stack([  # noqa: E731
+      align_train.eval_step(s, b, config.num_frames, False)['drift_error']
+      for b in eval_batches]).mean())
+  err_shipped = drift_error(shipped)
+  history = []
+  _build.reset_launches()
+  t1 = time.perf_counter()
+  state = align_train.train(config, device=dev,
+                            progress=lambda e, m: history.append(m))
+  torch.cuda.synchronize()
+  train_s = time.perf_counter() - t1
+  count_launches()
+  err_trained = drift_error(state)
+  print(f'20b aligner fine-tune (features {config.features}, 128^2, 5 '
+        f'frames, batch 32, 8 steps, 4 eval steps): {train_s:.2f} s; '
+        f'{json.dumps(history)}; drift error on {len(eval_batches)} fixed '
+        f'stacks: shipped {err_shipped:.4f} A, fine-tuned {err_trained:.4f} '
+        f'A (bar {ALIGNER_FINETUNE_BAR:.4f}); launches '
+        f'{dict(_build.LAUNCHES)}', flush=True)
+  check(np.isfinite(err_trained) and err_trained <= ALIGNER_FINETUNE_BAR,
+        '20b: the fine-tuned aligner is above its drift-error bar')
+  art = os.path.join(tmp, 'align_artifact')
+  os.makedirs(art)
+  align_train.save_params_msgpack(state.model, art, config)
+  reloaded = align_model.from_flax(align_train.load_params(art)).to(dev)
+  x = eval_batches[0]['images'][:8]
+  with torch.no_grad(), torch.backends.cudnn.flags(**exact):
+    same = all(torch.equal(a, b) for a, b in zip(state.model(x),
+                                                 reloaded(x)))
+  print(f'20b save_params_msgpack -> from_flax: both heads '
+        f'{"equal" if same else "DIFFER"}', flush=True)
+  check(same, '20b: the saved aligner does not give the trained outputs')
+  stream = align_data.dataset_iterator(7, **stacks)
+  out['aligner'] = dict(
+      shipped_drift_error=err_shipped, trained_drift_error=err_trained,
+      train_seconds=train_s, **_time_train_step(
+          'aligner (32, 128, 128, 5)', smi, state,
+          lambda b: align_train.train_step(
+              state, b, config.drift_loss_weight, config.num_frames,
+              config.final_step_only),
+          stream))
+  path_launches['perception_training'] = counted
+  print(f'20b: {time.perf_counter() - t0:.1f} s; the trainers launched '
+        f'{counted}', flush=True)
+  for kernel in ('noise_chain', 'clahe_hist_lut', 'clahe_remap',
+                 'clahe_small'):
+    check(counted.get(kernel, 0) > 0, f'20: the trainers launched no {kernel}')
+
+  # -- 20c. the graph aligner ------------------------------------------------------
+  t0 = time.perf_counter()
+  model = graph_model.from_flax(
+      serialization.read_params_msgpack(graph_model.SHIPPED_DIR)).to(dev)
+  evals = graph_data.dataset_iterator(PERCEPTION_EVAL_SEED, batch_size=16,
+                                      device=dev)
+  errs, zeros = [], []
+  with torch.no_grad():
+    for _ in range(PERCEPTION_EVAL_BATCHES):
+      batch = next(evals)
+      g, _ = graph_model.batched_apply(model, batch)
+      errs.append(torch.linalg.vector_norm(g - batch['drift'], dim=-1).mean())
+      zeros.append(torch.linalg.vector_norm(batch['drift'], dim=-1).mean())
+  err_shipped = float(torch.stack(errs).mean())
+  err_zero = float(torch.stack(zeros).mean())
+  print(f'20c shipped graph_aligner (width 64, 3 layers, k 8, capacity 256, '
+        f'2 frames) on {PERCEPTION_EVAL_BATCHES} fixed batches of 16: drift '
+        f'error {err_shipped:.4f} A; the zero predictor {err_zero:.4f} A',
+        flush=True)
+  check(err_shipped < err_zero,
+        '20c: the shipped graph aligner does not beat the zero predictor')
+  config = graph_train.Config(workdir=os.path.join(tmp, 'graph'), epochs=3,
+                              steps_per_epoch=20, eval_steps=4)
+  history = []
+  t1 = time.perf_counter()
+  state = graph_train.train(config, device=dev,
+                            progress=lambda e, m: history.append(m))
+  torch.cuda.synchronize()
+  train_s = time.perf_counter() - t1
+  print(f'20c fresh graph trainer (Config defaults, 3 x 20 steps, 4 eval '
+        f'steps): {train_s:.2f} s; {json.dumps(history)}', flush=True)
+  check(np.isfinite(history[-1]['drift_error'])
+        and history[-1]['drift_error'] < GRAPH_TRAIN_BAR,
+        '20c: the graph trainer is above its drift-error bar')
+  stream = graph_data.dataset_iterator(7, batch_size=16, device=dev)
+  out['graph'] = dict(
+      shipped_drift_error=err_shipped, zero_drift_error=err_zero,
+      trained_drift_error=history[-1]['drift_error'], train_seconds=train_s,
+      **_time_train_step('graph aligner (16 graphs of 2 x 256 nodes)', smi,
+                         state, lambda b: graph_train.train_step(state, b),
+                         stream))
+  print(f'20c: {time.perf_counter() - t0:.1f} s', flush=True)
+
+  # -- 20d. the train CLI and save_model ------------------------------------------
+  t0 = time.perf_counter()
+  work, art = os.path.join(tmp, 'cli'), os.path.join(tmp, 'cli_artifact')
+  env = dict(os.environ, PYTHONPATH=ROOT)
+  commands = (
+      ['-m', 'putting_dune_torch.atom_detection.train', f'--workdir={work}',
+       '--epochs=1', '--steps_per_epoch=2', '--eval_steps=1',
+       '--batch_size=16', '--image_size=128', '--noisy_images'],
+      ['-m', 'putting_dune_torch.atom_detection.save_model',
+       f'--workdir={work}', f'--output_dir={art}', '--image_size=128'])
+  for argv in commands:
+    run = subprocess.run([sys.executable] + argv, cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    print(f'20d {" ".join(argv[1:3])}: rc {run.returncode}; '
+          f'{run.stdout.strip()[-300:]}', flush=True)
+    check(run.returncode == 0, f'20d: {argv[1]} failed: {run.stderr[-2000:]}')
+  with open(os.path.join(art, 'model.json')) as f:
+    meta = json.load(f)
+  check(sorted(meta) == ['features', 'image_size', 'kind', 'num_classes']
+        and os.path.exists(os.path.join(art, 'params.msgpack')),
+        '20d: save_model wrote no artifact')
+  print(f'20d: {time.perf_counter() - t0:.1f} s; model.json {meta}',
+        flush=True)
+  return out
+
+
+def _hold_trainer_kernels(dev, recorded) -> dict:
+  """Phase 20e: each kernel the trainers launched against its twin on the
+  inputs the trainers gave it."""
+  import torch
+
+  gen = torch.Generator(device=dev).manual_seed(20)
+  errs = {}
+  for shape in ((32, 256, 256), (32, 128, 128)):
+    errs[f'noise_chain {shape}'] = _hold_noise_chain(
+        dev, _recorded(recorded, 'noise_chain', shape, '20e'),
+        "20e on a trainer's clean frames:", gen)
+  errs['clahe_pair (32, 256, 256)'] = _hold_clahe_pair(
+      _recorded(recorded, 'clahe_hist_lut', (32, 256, 256), '20e'),
+      "20e clahe_hist_lut + clahe_remap on the detector's frames")
+  render = _recorded(recorded, 'clahe_small', (32, 128, 128), '20e')
+  kw = {k: render[k] for k in ('clip_limit', 'grid_size', 'nbins')}
+  errs['clahe_small (32, 128, 128)'] = _hold_clahe_small(
+      render['image'], kw, "20e clahe_small (32, 128, 128) on the aligner's "
+      'frames')
+  return errs
 
 
 def main() -> None:
@@ -2214,10 +2652,16 @@ def main() -> None:
   print(f'hardware loop summary ({time.perf_counter() - t0:.1f} s): '
         f'{json.dumps(summary)}', flush=True)
 
-  print(f'phases 1-19 in {time.perf_counter() - t_smoke:.1f} s on {smi}',
+  # -- 20. perception training ---------------------------------------------------
+  t0 = time.perf_counter()
+  summary = perception_training(dev, smi, path_launches)
+  print(f'perception training summary ({time.perf_counter() - t0:.1f} s): '
+        f'{json.dumps(summary)}', flush=True)
+
+  print(f'phases 1-20 in {time.perf_counter() - t_smoke:.1f} s on {smi}',
         flush=True)
 
-  # -- 20. kernels line --------------------------------------------------------
+  # -- 21. kernels line --------------------------------------------------------
   kernels = []
   for name, (ms, plain_ms, err, bound_ms, bound_by, source) in rows.items():
     by_path = {path: counts[name] for path, counts in path_launches.items()}

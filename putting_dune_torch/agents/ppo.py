@@ -74,10 +74,14 @@ def conv_output_size(image_size: int, num_layers: int) -> int:
 
 def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
   """flax's initialisers in place: lecun_normal kernels (fan_in = inputs x
-  receptive field), zero biases, log_std (where there is one) -0.5."""
+  receptive field), zero biases, log_std (where there is one) -0.5.
+  LayerNorms keep torch's (and flax's) ones and zeros."""
   for layer in model.modules():
-    if isinstance(layer, (nn.Linear, nn.Conv2d)):
-      fan_in = layer.weight[0].numel()
+    if isinstance(layer, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+      # A transposed convolution's weight is (in, out, kh, kw).
+      fan_in = (layer.weight[:, 0].numel()
+                if isinstance(layer, nn.ConvTranspose2d)
+                else layer.weight[0].numel())
       model_lib.lecun_normal_(layer.weight, generator, fan_in=fan_in)
       with torch.no_grad():
         layer.bias.zero_()
@@ -546,6 +550,15 @@ def as_policy(model: ActorCritic, env, config: PPOConfig) -> nn.Module:
       dst.load_state_dict(src.state_dict())
     policy.out.load_state_dict(model.policy_mean.state_dict())
   return policy.eval()
+
+
+def as_eval_agent(model: ActorCritic, env, config: PPOConfig):
+  """Trained ActorCritic weights as a saveable `eval_agent.EvalAgent`
+  (an 'actor_critic' policy for image observations, an 'mlp' one
+  otherwise; see `as_policy`)."""
+  from putting_dune_torch.agents import eval_agent  # eval_agent imports us
+
+  return eval_agent.EvalAgent(as_policy(model, env, config))
 
 
 def train_and_save(

@@ -13,9 +13,11 @@ same memory layout as NHWC. The convolutions are PyTorch's (cuDNN on the
 card), as the JAX package leaves them to XLA.
 
 `params_from_flax` turns the flax parameter tree into this module's
-state_dict. The transposed convolution follows flax's `nn.ConvTranspose(
-strides=(2, 2), padding='SAME')`: the stride-dilated input padded 2 before
-and 1 after, correlated with the kernel as stored (not flipped). That is
+state_dict and `params_to_flax` turns a state_dict (or a module) back into
+the flax tree, so weights cross both ways. The transposed convolution
+follows flax's `nn.ConvTranspose(strides=(2, 2), padding='SAME')`: the
+stride-dilated input padded 2 before and 1 after, correlated with the
+kernel as stored (not flipped). That is
 `conv_transpose2d(stride=2, padding=0)` with the spatially flipped kernel,
 less its last output row and column.
 """
@@ -136,6 +138,59 @@ def _conv_transpose_weight(kernel: np.ndarray) -> torch.Tensor:
   flipped = np.asarray(kernel, np.float32)[::-1, ::-1]
   return torch.from_numpy(np.ascontiguousarray(
       np.transpose(flipped, (2, 3, 0, 1))))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+  return t.detach().to('cpu', torch.float32).numpy().copy()
+
+
+def conv_kernel(weight: torch.Tensor) -> np.ndarray:
+  """torch OIHW -> flax HWIO (the inverse of `_conv_weight`)."""
+  return np.ascontiguousarray(np.transpose(_np(weight), (2, 3, 1, 0)))
+
+
+def conv_transpose_kernel(weight: torch.Tensor) -> np.ndarray:
+  """torch IOHW, spatially flipped -> flax HWIO (the inverse of
+  `_conv_transpose_weight`)."""
+  kernel = np.transpose(_np(weight), (2, 3, 0, 1))[::-1, ::-1]
+  return np.ascontiguousarray(kernel)
+
+
+def state_dict_of(model_or_state) -> Mapping[str, torch.Tensor]:
+  """A module's state_dict, or the mapping given (a state_dict, or the
+  gradients by parameter name)."""
+  if isinstance(model_or_state, nn.Module):
+    return model_or_state.state_dict()
+  return model_or_state
+
+
+def params_to_flax(model_or_state) -> dict:
+  """A `UNet` (or its state_dict) as the flax parameter tree, float32
+  numpy leaves in the order flax creates them."""
+  state = state_dict_of(model_or_state)
+  levels = sum(1 for k in state if k.startswith('down.')
+               and k.endswith('.conv.weight'))
+  params = {}
+
+  def block(prefix: str, conv_name: str, norm_index: int) -> None:
+    params[conv_name] = {'kernel': conv_kernel(state[f'{prefix}.conv.weight']),
+                         'bias': _np(state[f'{prefix}.conv.bias'])}
+    params[f'LayerNorm_{norm_index}'] = {
+        'scale': _np(state[f'{prefix}.norm.weight']),
+        'bias': _np(state[f'{prefix}.norm.bias'])}
+
+  for d in range(levels):
+    block(f'down.{d}', f'down_{d}', d)
+  block('bottleneck', 'bottleneck', levels)
+  for i, d in enumerate(reversed(range(levels))):
+    params[f'up_transpose_{d}'] = {
+        'kernel': conv_transpose_kernel(
+            state[f'up_transpose.{d}.conv.weight']),
+        'bias': _np(state[f'up_transpose.{d}.conv.bias'])}
+    block(f'up.{d}', f'up_{d}', levels + 1 + i)
+  params['head'] = {'kernel': conv_kernel(state['head.weight']),
+                    'bias': _np(state['head.bias'])}
+  return params
 
 
 def features_from_flax(params: Mapping) -> tuple[int, ...]:

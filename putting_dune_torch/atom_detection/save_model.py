@@ -1,0 +1,50 @@
+"""Packages the best atom-detection checkpoint for deployment.
+
+Port of putting_dune_tpu/atom_detection/save_model.py: reads the trained
+params (`train.load_params`: params.msgpack, else the best checkpoint)
+and writes `params.msgpack` (flax bytes, which the JAX package reads) and
+`model.json` with the JAX package's keys into --output_dir.
+
+  python -m putting_dune_torch.atom_detection.save_model \
+      --workdir=runs/det --output_dir=runs/det_artifact
+
+--export_tf (a TF SavedModel) waits for the IO slice and exits 2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import Optional, Sequence
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+  parser = argparse.ArgumentParser(description=__doc__)
+  parser.add_argument('--workdir', required=True)
+  parser.add_argument('--output_dir', required=True)
+  parser.add_argument('--image_size', type=int, default=256)
+  parser.add_argument('--features', type=int, nargs='+',
+                      default=[32, 64, 128, 256])
+  parser.add_argument('--export_tf', action='store_true')
+  args = parser.parse_args(argv)
+  if args.export_tf:
+    parser.error('--export_tf: TF SavedModel export is not ported yet '
+                 '(ROADMAP queue 1, IO).')
+
+  from putting_dune_torch.atom_detection import train as train_lib
+  from putting_dune_torch.io import serialization
+
+  params = train_lib.load_params(args.workdir)
+  os.makedirs(args.output_dir, exist_ok=True)
+  serialization.write_params(params, args.output_dir)
+  with open(os.path.join(args.output_dir, 'model.json'), 'w') as f:
+    json.dump({'kind': 'atom_detection_unet',
+               'features': list(args.features),
+               'image_size': args.image_size,
+               'num_classes': 3}, f)
+  print(f'Saved native artifact to {args.output_dir}')
+
+
+if __name__ == '__main__':
+  main()

@@ -20,13 +20,16 @@ multi_dopant_2_vision_planner_drift{,_corrected}).
 
 Runs the suite as one batch of environments (CUDA by default; raises if
 CUDA is absent unless --device=cpu) and prints the aggregate as JSON.
---nobatched runs the JAX package's host loop instead: one episode per seed
-on the single-env wrapper, the registry's host agent acting on each
-timestep (`eval_lib.evaluate`; the multi-dopant experiments always run
-batched, as in the JAX package). --seed seeds the host agent's numpy
+--no-batched (or --nobatched) runs the JAX package's host loop instead: one
+episode per seed on the single-env wrapper, the registry's host agent
+acting on each timestep (`eval_lib.evaluate`; the multi-dopant
+experiments always run batched, as in the JAX package). --seed seeds the
+host agent's numpy
 generator and the wrapper; --output_json writes {experiment, suite,
 aggregate, results} with NaN as null. --mesh (data-parallel evaluation)
-is not ported: a non-empty value raises.
+is not ported: a non-empty value raises. --video_save_dir parses as in the
+JAX package; episode videos are not ported, so both evaluators raise
+NotImplementedError when it is set.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ class Args:
   image_size: Optional[int] = None
   device: Optional[str] = None
   batched: bool = True
+  video_save_dir: Optional[str] = None
   seed: int = 0
   output_json: Optional[str] = None
   mesh: str = ''
@@ -89,7 +93,7 @@ def main(args: Args) -> dict:
   from putting_dune_torch import run_helpers
 
   if args.mesh and not args.batched:
-    raise ValueError('--mesh requires batched evaluation (drop --nobatched).')
+    raise ValueError('--mesh requires batched evaluation (drop --no-batched).')
   if args.mesh:
     raise NotImplementedError(
         f'--mesh={args.mesh!r}: putting_dune_torch evaluates on one device; '
@@ -111,7 +115,8 @@ def main(args: Args) -> dict:
         image_size=args.image_size, device=device,
     )
   t0 = time.perf_counter()
-  results = eval_lib.evaluate_batched(env, policy, seeds)
+  results = eval_lib.evaluate_batched(env, policy, seeds,
+                                      video_save_dir=args.video_save_dir)
   _synchronize(device)
   seconds = time.perf_counter() - t0
   env_steps = len(seeds) * max(r.num_actions_taken for r in results)
@@ -142,7 +147,8 @@ def _evaluate_host(args: Args, seeds, device):
       experiment.get_simulator_config, simulator_step_limit=args.step_limit,
       image_size=args.image_size, device=device)
   t0 = time.perf_counter()
-  results = eval_lib.evaluate(agent, env, seeds)
+  results = eval_lib.evaluate(agent, env, seeds,
+                              video_save_dir=args.video_save_dir)
   _synchronize(device)
   seconds = time.perf_counter() - t0
   return results, sum(r.num_actions_taken for r in results), seconds
@@ -195,13 +201,19 @@ def _parse_args(argv=None) -> Args:
                       "multi-dopant experiment's own).")
   parser.add_argument('--device', default=None,
                       help="'cuda' (default) or 'cpu'.")
+  parser.add_argument('--batched', action=argparse.BooleanOptionalAction,
+                      default=True,
+                      help='One batch (default), or with --no-batched the '
+                      'per-seed host loop.')
   parser.add_argument('--nobatched', dest='batched', action='store_false',
-                      help='The per-seed host loop instead of one batch.')
+                      help='Same as --no-batched.')
+  parser.add_argument('--video_save_dir', default=None,
+                      help='Episode videos; not ported, any value raises.')
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--output_json', default=None)
   parser.add_argument('--mesh', default='',
                       help='Accepted only so that JAX command lines parse: '
-                      'any value raises (with --nobatched as in JAX; the '
+                      'any value raises (with --no-batched as in JAX; the '
                       'data-parallel mesh is not ported).')
   return Args(**vars(parser.parse_args(argv)))
 

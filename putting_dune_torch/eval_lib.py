@@ -129,6 +129,7 @@ def evaluate_batched(
     seeds: Sequence[int],
     *,
     timeout_seconds: float = DEFAULT_TIMEOUT_SECONDS,
+    video_save_dir: Optional[str] = None,
 ) -> List[EvalResult]:
   """Evaluates a batched policy over one batch of environments.
 
@@ -141,10 +142,15 @@ def evaluate_batched(
     timeout_seconds: combined per-episode budget (simulated seconds plus
       the batch-shared wall clock since the rollout started); the step
       cap is env.config.step_limit or env.step_limit (600 if neither).
+    video_save_dir: episode videos; not ported, so any value raises
+      NotImplementedError.
 
   Returns:
     One EvalResult per seed, in order.
   """
+  if video_save_dir is not None:
+    raise NotImplementedError(
+        'video_save_dir: episode videos wait for the port of plotting_utils.')
   if env.batch_size != len(seeds):
     raise ValueError(
         f'env.batch_size={env.batch_size} != len(seeds)={len(seeds)}')

@@ -10,6 +10,8 @@ Frame conventions are the JAX package's:
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -30,6 +32,51 @@ def rotate_coordinates(
   x = coords[..., 0]
   y = coords[..., 1]
   return torch.stack([x * cos - y * sin, x * sin + y * cos], dim=-1)
+
+
+def nearest_neighbors(
+    atom_positions: torch.Tensor,
+    query: torch.Tensor,
+    k: int,
+    *,
+    include_self: bool = False,
+    valid_mask: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+  """The k nearest atoms to each query under L2: (distances, indices),
+  each (Q, k), or (k,) for a single (2,) query.
+
+  Without include_self the nearest point (the query itself when it is an
+  atom) is dropped: k + 1 are fetched and the first is stripped. Rows
+  where `valid_mask` (N,) is false are at distance inf. Among equal
+  distances the lower index comes first, as jax.lax.top_k orders them.
+  """
+  single = query.dim() == 1
+  q = query.reshape(-1, 2)
+  deltas = q[:, None, :] - atom_positions[None, :, :]
+  dist2 = torch.sum(deltas * deltas, dim=-1)
+  if valid_mask is not None:
+    dist2 = torch.where(valid_mask[None, :], dist2, float('inf'))
+  fetch = k + (0 if include_self else 1)
+  dist2, indices = torch.sort(dist2, dim=-1, stable=True)
+  distances = torch.sqrt(torch.clamp(dist2[:, :fetch], min=0.0))
+  indices = indices[:, :fetch]
+  if not include_self:
+    distances, indices = distances[:, 1:], indices[:, 1:]
+  if single:
+    return distances.reshape(-1), indices.reshape(-1)
+  return distances, indices
+
+
+def nearest_neighbors3(
+    atom_positions: torch.Tensor,
+    query: torch.Tensor,
+    *,
+    include_self: bool = False,
+    valid_mask: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+  """The 3 (4 with self) nearest neighbours of each query row."""
+  return nearest_neighbors(atom_positions, query, 3,
+                           include_self=include_self, valid_mask=valid_mask)
 
 
 def microscope_to_material(

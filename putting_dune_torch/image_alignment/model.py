@@ -14,7 +14,8 @@ convolution + channel LayerNorm + tanh GELU, 2x2 max pooling, flax's
 Like the JAX module it takes NHWC, (B, H, W, T), and returns (local
 (B, H, W, local_output_size) NHWC, global (B, global_output_size)); H and
 W must be divisible by 2**(len(features) - 1). `params_from_flax` maps
-the flax parameter tree onto the module's state_dict.
+the flax parameter tree onto the module's state_dict, and `params_to_flax`
+maps a state_dict (or the module) back onto the flax tree.
 """
 
 from __future__ import annotations
@@ -147,3 +148,43 @@ def from_flax(params: Mapping) -> GlobalLocalUNet:
   )
   model.load_state_dict(params_from_flax(params))
   return model.eval()
+
+
+def params_to_flax(model_or_state) -> dict:
+  """A `GlobalLocalUNet` (or its state_dict) as the flax parameter tree,
+  float32 numpy leaves in the order flax creates them."""
+  state = unet_lib.state_dict_of(model_or_state)
+  levels = sum(1 for k in state if k.startswith('down.')
+               and k.endswith('.conv.weight'))
+  vec = unet_lib._np
+  params = {}
+
+  def conv(name: str, prefix: str) -> None:
+    params[name] = {'kernel': unet_lib.conv_kernel(state[f'{prefix}.weight']),
+                    'bias': vec(state[f'{prefix}.bias'])}
+
+  def norm(index: int, prefix: str) -> None:
+    params[f'LayerNorm_{index}'] = {'scale': vec(state[f'{prefix}.weight']),
+                                    'bias': vec(state[f'{prefix}.bias'])}
+
+  conv('stem', 'stem.conv')
+  norm(0, 'stem.norm')
+  for d in range(levels):
+    conv(f'down_{d}', f'down.{d}.conv')
+    norm(1 + d, f'down.{d}.norm')
+  conv('bottleneck', 'bottleneck.conv')
+  norm(1 + levels, 'bottleneck.norm')
+  for i, d in enumerate(reversed(range(levels))):
+    params[f'up_transpose_{d}'] = {
+        'kernel': unet_lib.conv_transpose_kernel(
+            state[f'up_transpose.{d}.conv.weight']),
+        'bias': vec(state[f'up_transpose.{d}.conv.bias'])}
+    conv(f'up_{d}', f'up.{d}.conv')
+    norm(2 + levels + i, f'up.{d}.norm')
+  conv('local_head', 'local_head')
+  conv('global_conv', 'global_conv')
+  norm(2 + 2 * levels, 'global_norm')
+  params['global_head'] = {
+      'kernel': np.ascontiguousarray(vec(state['global_head.weight']).T),
+      'bias': vec(state['global_head.bias'])}
+  return params

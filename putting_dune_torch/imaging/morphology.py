@@ -6,6 +6,8 @@ replaces on every input the tests give:
 
   * `resize_nearest`: `cv2.resize(..., interpolation=INTER_NEAREST)`, the
     source index floor(i * src / dst) (not centre-exact);
+  * `resize_bilinear`: `cv2.resize(..., interpolation=INTER_LINEAR)` on
+    float32 frames: half-pixel centres, edge clamp, within 1e-6;
   * `erode`, `dilate`: a 2 x 2 kernel at OpenCV's default anchor (1, 1),
     so each pass takes the min (max) over the pixel and its upper-left
     neighbours, outside pixels ignored, `iterations` passes;
@@ -44,6 +46,37 @@ def resize_nearest(image: np.ndarray, height: int, width: int) -> np.ndarray:
 
   image = np.asarray(image)
   return image[index(image.shape[0], height)][:, index(image.shape[1], width)]
+
+
+def _linear_taps(src: int, dst: int) -> tuple[np.ndarray, np.ndarray,
+                                                np.ndarray]:
+  """OpenCV's INTER_LINEAR taps along one axis: output i reads source
+  x0 and x0 + 1 with weights 1 - f and f, f = (i + 0.5) * src / dst - 0.5
+  less its floor, in float64; f is 0 left of the first and right of the
+  last source centre (edge clamp)."""
+  scale = 1.0 / (dst / src)
+  pos = (np.arange(dst) + 0.5) * scale - 0.5
+  x0 = np.floor(pos).astype(np.int64)
+  frac = pos - x0
+  frac[x0 < 0] = 0.0
+  x0 = np.maximum(x0, 0)
+  last = x0 >= src - 1
+  frac[last] = 0.0
+  x0[last] = src - 1
+  return x0, np.minimum(x0 + 1, src - 1), frac
+
+
+def resize_bilinear(image: np.ndarray, height: int, width: int
+                    ) -> np.ndarray:
+  """Bilinear resize of a float (H, W) frame to (height, width), float32:
+  the horizontal pass, then the vertical one, as OpenCV computes it."""
+  image = np.asarray(image, np.float32)
+  c0, c1, fx = _linear_taps(image.shape[1], width)
+  wx0, wx1 = (1.0 - fx).astype(np.float32), fx.astype(np.float32)
+  rows = image[:, c0] * wx0 + image[:, c1] * wx1
+  r0, r1, fy = _linear_taps(image.shape[0], height)
+  wy0, wy1 = (1.0 - fy).astype(np.float32), fy.astype(np.float32)
+  return rows[r0] * wy0[:, None] + rows[r1] * wy1[:, None]
 
 
 def _min_max_filter(image: np.ndarray, iterations: int, op) -> np.ndarray:

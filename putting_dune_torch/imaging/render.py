@@ -22,10 +22,12 @@ import torch.nn.functional as F
 from putting_dune_torch import geometry
 from putting_dune_torch import structures
 from putting_dune_torch.imaging import clahe as clahe_lib
+from putting_dune_torch.imaging import noise as noise_lib
 from putting_dune_torch.ops import noise_fused
 from putting_dune_torch.ops import splat as splat_lib
 
 SPLAT_BACKENDS = ('auto', 'fused')
+NOISE_BACKENDS = ('fused', 'stages')
 
 
 def _splat_axis_kernels(
@@ -105,14 +107,29 @@ def render_stem_image(
     *,
     image_size: int = 512,
     apply_clahe: bool = True,
+    noise_backend: str = 'fused',
 ) -> torch.Tensor:
-  """Full noisy STEM frames: splat (+blur) -> noise chain -> CLAHE."""
+  """Full noisy STEM frames: splat (+blur) -> noise -> CLAHE.
+
+  noise_backend: 'fused' (the default) runs the seven noise stages as the
+  one `noise_chain` kernel (the JAX package's 'pallas_fused'); 'stages'
+  runs them one operator at a time (imaging/noise.py, the JAX package's
+  'xla' chain). The two draw different numbers from `gen`; their laws are
+  the same.
+  """
+  if noise_backend not in NOISE_BACKENDS:
+    raise ValueError(
+        f'noise_backend must be one of {NOISE_BACKENDS}, got '
+        f'{noise_backend!r}.')
   image = render_clean_image(
       window, fov, params.intensity_exponent, image_size=image_size,
       blur_amount=params.blur_amount,
   )
-  packed = noise_fused.pack_params(params, image.shape[0])
-  image = noise_fused.noise_chain(image, packed, gen=gen)
+  if noise_backend == 'stages':
+    image = noise_lib.apply_stages(gen, image, params)
+  else:
+    packed = noise_fused.pack_params(params, image.shape[0])
+    image = noise_fused.noise_chain(image, packed, gen=gen)
   if apply_clahe:
     image = clahe_lib.equalize_adapthist(image, clip_limit=0.01)
   return image

@@ -19,6 +19,8 @@ dict, and whatever `default` turns into one of these or an `ExtType`.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import struct
 from typing import Any, Callable, Optional
 
@@ -143,6 +145,51 @@ def _str_keys(tree):
 def to_bytes(tree) -> bytes:
   """`flax.serialization.to_bytes` of a nested dict of numpy arrays."""
   return packb(_str_keys(tree), default=_flax_ext)
+
+
+# --- a trained model's artifacts in a workdir --------------------------------
+# `params.msgpack` (the flax bytes both packages read and write) and the
+# `arch.json` sidecar of the perception models.
+
+
+def _key_sorted(tree):
+  if isinstance(tree, dict):
+    return {k: _key_sorted(tree[k]) for k in sorted(tree)}
+  return tree
+
+
+def write_params(params, workdir: str) -> str:
+  """Writes a flax tree to `workdir`/params.msgpack, keys sorted as the
+  JAX package's `jax.device_get(params)` leaves them; returns the path."""
+  path = os.path.join(workdir, 'params.msgpack')
+  with open(path, 'wb') as f:
+    f.write(to_bytes(_key_sorted(params)))
+  return path
+
+
+def read_params_msgpack(workdir: str) -> Optional[dict]:
+  """The flax tree in `workdir`/params.msgpack (float32 numpy leaves), or
+  None when there is no such file."""
+  path = os.path.join(workdir, 'params.msgpack')
+  if not os.path.exists(path):
+    return None
+  with open(path, 'rb') as f:
+    return unpackb(f.read())
+
+
+def write_arch(workdir: str, arch: dict) -> None:
+  with open(os.path.join(workdir, 'arch.json'), 'w') as f:
+    json.dump(arch, f)
+
+
+def load_arch(workdir: str) -> Optional[dict]:
+  """Reads the arch.json sidecar ({'features', 'image_size'}, and the
+  aligner's 'num_frames') if present."""
+  path = os.path.join(workdir, 'arch.json')
+  if not os.path.exists(path):
+    return None
+  with open(path) as f:
+    return json.load(f)
 
 
 # --- msgpack-numpy arrays --------------------------------------------------

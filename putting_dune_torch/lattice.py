@@ -45,6 +45,19 @@ def canonical_graphene_positions(num_cols: int = 50) -> np.ndarray:
   return positions - positions.mean(axis=0, keepdims=True)
 
 
+def canonical_graphene_with_centered_silicon(
+    num_cols: int = 10,
+) -> tuple[np.ndarray, np.ndarray]:
+  """The canonical sheet shifted so that its silicon site (the site
+  nearest the centroid) sits at (0, 0): (positions (N, 2) float64,
+  atomic_numbers (N,) int32)."""
+  positions = canonical_graphene_positions(num_cols)
+  atomic_numbers = np.full(positions.shape[0], constants.CARBON, np.int32)
+  si_idx = int(np.argmin(np.sum(positions**2, axis=1)))
+  atomic_numbers[si_idx] = constants.SILICON
+  return positions - positions[si_idx:si_idx + 1], atomic_numbers
+
+
 def build_neighbor_table(positions: np.ndarray, k: int = 3) -> np.ndarray:
   """Static (N, k) int table of each atom's k nearest neighbors.
 

@@ -2,7 +2,8 @@
 
 Port of putting_dune_tpu/microscope_data.py: atomic grids, beam controls,
 fields of view with their frame conversions, observations, transitions,
-trajectories and drift labels, with the same fields, equality and hashes.
+trajectories, drift labels and labeled alignment trajectories, with the
+same fields, equality and hashes.
 This is the boundary between the batched device simulator (structures.py)
 and the real-microscope loop and the offline pipelines; frames are by
 convention ("microscope" = [0, 1]^2, "material" = angstroms).
@@ -218,6 +219,15 @@ class Drift:
         observation.grid.atom_positions + jitter_microscope,
         observation.grid.atomic_numbers)
     return dataclasses.replace(observation, grid=new_grid, fov=new_fov)
+
+
+@dataclasses.dataclass(frozen=True)
+class LabeledAlignmentTrajectory:
+  """A trajectory with one drift label per observation (the JAX package's,
+  without its proto methods)."""
+
+  trajectory: Trajectory
+  drifts: Sequence[Drift]
 
 
 def get_silicon_positions(grid: AtomicGrid) -> np.ndarray:

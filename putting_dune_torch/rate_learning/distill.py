@@ -12,7 +12,7 @@ import torch
 
 from putting_dune_torch.rate_learning import losses
 from putting_dune_torch.rate_learning import model as model_lib
-from putting_dune_torch.rate_learning import train as train_lib
+from putting_dune_torch.utils import training as training_utils
 
 
 def distill_loss(student, teacher, generator: torch.Generator,
@@ -65,7 +65,7 @@ def distill_multiple_models_to_single(
   student = model_lib.RateMLP(
       1, teacher.in_features, teacher.hidden_dimensions, teacher.num_states,
       teacher.batchnorm, device=data_mean.device, generator=generator)
-  optimizer = train_lib.make_optimizer(student, learning_rate, weight_decay)
+  optimizer = training_utils.adamw(student, learning_rate, weight_decay)
   teacher.eval()
   student.train()
   history = torch.stack([

@@ -199,3 +199,52 @@ class RateMLP(nn.Module):
     single = RateMLP(1, self.in_features, self.hidden_dimensions,
                      self.num_states, self.batchnorm, device=device)
     return single.load_flax_trees(pick(params), pick(stats))
+
+
+def get_mlp_fn(
+    hidden_dimensions: Sequence[int] = (64, 64),
+    num_states: int = 3,
+    batchnorm: bool = True,
+    dropout_rate: float = 0.0,
+):
+  """(init_fn, apply_fn) in the reference's calling convention, for one
+  model, its parameters as flax trees of numpy arrays:
+
+    init_fn(generator, x)                              -> (params, state)
+    apply_fn(params, state, generator, x, is_training) -> (outputs,
+                                                           new_state)
+
+  `state` holds the batch norm's running statistics (flax 'batch_stats'),
+  updated by a training call. x is (B, C) or (C,). The generator draws the
+  initial kernels; apply_fn takes one for the convention's dropout key,
+  and dropout is not ported.
+  """
+  hidden_dimensions = tuple(hidden_dimensions)
+
+  def module(x: torch.Tensor, generator=None) -> RateMLP:
+    return RateMLP(1, x.shape[-1], hidden_dimensions, num_states, batchnorm,
+                   dropout_rate, device=x.device, generator=generator)
+
+  def squeeze(tree):
+    return {k: {leaf: v[0] for leaf, v in d.items()} for k, d in tree.items()}
+
+  def unsqueeze(tree):
+    return {k: {leaf: np.asarray(v)[None] for leaf, v in d.items()}
+            for k, d in tree.items()}
+
+  def init_fn(generator: torch.Generator, x: torch.Tensor):
+    params, state = module(x, generator).flax_trees()
+    return squeeze(params), squeeze(state)
+
+  def apply_fn(params, state, generator, x: torch.Tensor,
+               is_training: bool = True):
+    del generator
+    squeezed = x.dim() == 1
+    if squeezed:
+      x = x[None]
+    model = module(x).load_flax_trees(unsqueeze(params), unsqueeze(state))
+    out = model(x, is_training=is_training)[0]
+    new_state = squeeze(model.flax_trees()[1]) if is_training else state
+    return (out[0] if squeezed else out), new_state
+
+  return init_fn, apply_fn

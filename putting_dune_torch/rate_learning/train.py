@@ -20,6 +20,7 @@ from putting_dune_torch.rate_learning import config as config_lib
 from putting_dune_torch.rate_learning import data_utils
 from putting_dune_torch.rate_learning import losses
 from putting_dune_torch.rate_learning import model as model_lib
+from putting_dune_torch.utils import training as training_utils
 
 # The per-epoch metrics use a bounded prefix of each split (the splits are
 # shuffled, so a prefix is a random sample): a full-split forward would keep
@@ -30,15 +31,15 @@ METRIC_NAMES = ('train_loss', 'test_loss', 'train_rate_loss',
                 'train_class_loss', 'test_rate_loss', 'test_class_loss')
 
 
-def make_optimizer(model: torch.nn.Module, learning_rate: float,
-                   weight_decay: float):
-  """optax.adamw(learning_rate, weight_decay=...) as the JAX package builds
-  it: b1 0.9, b2 0.999, eps 1e-8 outside the square root, and the decay on
-  every leaf, batch-norm scale and bias included. On stacked (M, ...)
-  parameters each element updates on its own, so this is M optimizers."""
-  return torch.optim.AdamW(
-      model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
-      weight_decay=weight_decay)
+def tree_stack(list_of_trees):
+  """Stacks matching nested dicts leaf by leaf along a new axis 0 (tensors
+  with torch.stack, anything else with np.stack)."""
+  first = list_of_trees[0]
+  if isinstance(first, Mapping):
+    return {k: tree_stack([t[k] for t in list_of_trees]) for k in first}
+  if isinstance(first, torch.Tensor):
+    return torch.stack(list_of_trees, 0)
+  return np.stack(list_of_trees, 0)
 
 
 def _take(data: Mapping[str, torch.Tensor], index: torch.Tensor):
@@ -225,8 +226,9 @@ def train_multiple_models(
         num_models, train['context'].shape[-1], config.hidden_dimensions,
         config.num_states, config.batchnorm, config.dropout_rate,
         device=device, generator=generator)
-  optimizer = make_optimizer(model, config.learning_rate,
-                             config.weight_decay)
+  # One AdamW over the stacked (M, ...) parameters is M optimizers.
+  optimizer = training_utils.adamw(model, config.learning_rate,
+                                   config.weight_decay)
   total = config.epochs
   chunk = min(epoch_chunk or total, total)
   parts, done = [], 0

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable
+from typing import Callable, Protocol
 
 import numpy as np
 import torch
@@ -21,6 +21,14 @@ from putting_dune_torch import constants
 
 RateFunction = Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
                         torch.Tensor]
+
+
+class RateFunctionProtocol(Protocol):
+  """A rate law: (si_pos, neighbor_pos, beam_pos) -> rates."""
+
+  def __call__(self, si_pos: torch.Tensor, neighbor_pos: torch.Tensor,
+               beam_pos: torch.Tensor) -> torch.Tensor:
+    ...
 
 
 def simple_canonical_rates(

@@ -70,6 +70,7 @@ def main(argv=None) -> None:
   from putting_dune_torch.rate_learning import distill
   from putting_dune_torch.rate_learning import model as model_lib
   from putting_dune_torch.rate_learning import train
+  from putting_dune_torch.utils import training as training_utils
 
   parser = argparse.ArgumentParser(description=__doc__)
   parser.add_argument('--num_data', type=int, default=40_960)
@@ -104,8 +105,8 @@ def main(argv=None) -> None:
   model = model_lib.RateMLP(num_models, train_data['context'].shape[-1],
                             config.hidden_dimensions, config.num_states,
                             config.batchnorm, device=dev, generator=gen)
-  optimizer = train.make_optimizer(model, config.learning_rate,
-                                   config.weight_decay)
+  optimizer = training_utils.adamw(model, config.learning_rate,
+                                  config.weight_decay)
 
   def epoch():
     train.train_epoch(model, optimizer, train_data, config.batch_size, gen,
@@ -135,8 +136,8 @@ def main(argv=None) -> None:
   student = model_lib.RateMLP(1, model.in_features, config.hidden_dimensions,
                               config.num_states, config.batchnorm,
                               device=dev, generator=gen)
-  opt = train.make_optimizer(student, config.learning_rate,
-                             config.weight_decay)
+  opt = training_utils.adamw(student, config.learning_rate,
+                            config.weight_decay)
   x = torch.cat([data['context'], data['position']], -1)
   mean, scale = x.mean(0), x.std(0)
   batches = distill_config.batches_per_epoch

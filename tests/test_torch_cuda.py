@@ -580,3 +580,71 @@ def test_atom_detector_on_the_card_matches_the_cpu(cuda):
     equal += sorted(map(tuple, np.round(a.atom_positions, 9))) == sorted(
         map(tuple, np.round(b.atom_positions, 9)))
   assert equal >= 7
+
+
+def _one_train_step(module, config, make_batch, step, device):
+  """(metrics, gradients by parameter) of one train step of a trainer on
+  `device`, from the same initial params and batch. The step must have
+  moved every parameter by optax's first AdamW update on these gradients,
+  p - lr (g / (|g| + eps) + 1e-4 p), within 1e-3 lr plus 2^-22 |p|."""
+  state = module.create_state(config, device=device)
+  before = {k: p.detach().double() for k, p in
+            state.model.named_parameters()}
+  batch = {k: v.to(device) for k, v in make_batch().items()}
+  _, metrics = step(state, batch)
+  lr = config.learning_rate
+  for key, p in state.model.named_parameters():
+    p0, g = before[key], p.grad.double()
+    want = p0 - lr * (g / (g.abs() + 1e-8) + 1e-4 * p0)
+    err = (p.detach().double() - want).abs()
+    assert bool((err <= 1e-3 * lr + 2.0**-22 * p0.abs()).all()), (
+        device, key, float(err.max()) / lr)
+  return ({k: float(v) for k, v in metrics.items()},
+          {k: p.grad.cpu() for k, p in state.model.named_parameters()})
+
+
+@pytest.mark.parametrize('trainer', ['detector', 'aligner', 'graph'])
+def test_one_train_step_on_the_card_matches_the_cpu(cuda, trainer):
+  """Full-f32 train steps (TF32 off) on the card and on the CPU, the same
+  params and batch: metrics within 1e-4, gradients within 1e-4 of each
+  leaf's largest, and on each device the parameters moved by the first
+  AdamW update on that device's gradients. (That update is about
+  lr * sign(g), so the updated params of a near-zero gradient may differ
+  between the devices by up to 2 lr.)"""
+  from putting_dune_torch import lattice
+  from putting_dune_torch.atom_detection import data as det_data
+  from putting_dune_torch.atom_detection import train as det_train
+  from putting_dune_torch.graph_alignment import data as graph_data
+  from putting_dune_torch.graph_alignment import train as graph_train
+  from putting_dune_torch.image_alignment import data as align_data
+  from putting_dune_torch.image_alignment import train as align_train
+
+  lat = lattice.make_lattice(20, 'cpu')
+  gen = torch.Generator().manual_seed(3)
+  if trainer == 'detector':
+    module = det_train
+    config = det_train.Config(workdir='', features=(8, 16, 32),
+                              image_size=64)
+    batch = det_data.sample_batch(gen, lat, batch_size=4, image_size=64,
+                                  noisy=True)
+    step = lambda s, b: det_train.train_step(s, b, (0.2, 1.0, 10.0))  # noqa: E731
+  elif trainer == 'aligner':
+    module = align_train
+    config = align_train.Config(workdir='', features=(8, 16), image_size=32,
+                                num_frames=3)
+    batch = align_data.sample_stack(gen, lat, batch_size=4, image_size=32,
+                                    num_frames=3, registration_noise=0.3)
+    step = lambda s, b: align_train.train_step(s, b, 1.0, 3, False)  # noqa: E731
+  else:
+    module = graph_train
+    config = graph_train.Config(workdir='', width=32, num_layers=2, k=4,
+                                capacity=64)
+    batch = graph_data.sample_batch(gen, lat, batch_size=4, capacity=64)
+    step = lambda s, b: graph_train.train_step(s, b)  # noqa: E731
+  got = _one_train_step(module, config, lambda: batch, step, cuda)
+  want = _one_train_step(module, config, lambda: batch, step, 'cpu')
+  for key in want[0]:
+    assert abs(got[0][key] - want[0][key]) <= 1e-4, key
+  for key, g in want[1].items():
+    bound = 1e-4 * float(g.abs().max())
+    assert float((got[1][key] - g).abs().max()) <= bound, key

@@ -29,6 +29,7 @@ from putting_dune_torch.rate_learning import data_utils as t_data
 from putting_dune_torch.rate_learning import losses as t_losses
 from putting_dune_torch.rate_learning import predictor as t_predictor
 from putting_dune_torch.rate_learning import train as t_train
+from putting_dune_torch.utils import training as t_training
 from putting_dune_tpu.rate_learning import config as j_config
 from putting_dune_tpu.rate_learning import data_utils as j_data
 from putting_dune_tpu.rate_learning import losses as j_losses
@@ -186,7 +187,7 @@ def test_adamw_step_matches_optax():
   optim = optax.adamw(1e-3, weight_decay=0.1)
   params = j_pred.params
   opt_state = jax.vmap(optim.init)(params)
-  optimizer = t_train.make_optimizer(t_pred.model, 1e-3, 0.1)
+  optimizer = t_training.adamw(t_pred.model, 1e-3, 0.1)
   for _ in range(2):
     (_, _), grads = _jax_loss_and_grads(j_pred, x, next_state, dt, (1., 1.))
     updates, opt_state = jax.vmap(optim.update)(grads, opt_state, params)
