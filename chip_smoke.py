@@ -174,7 +174,28 @@ Phases (any failure exits non-zero before the final line):
       launches under `perception_training`; (e) `noise_chain`, the pair
       and `clahe_small` against their twins on the frames the trainers
       gave them, at (32, 256, 256) and (32, 128, 128);
-  21. a `kernels` JSON line; 22. the result JSON line, last.
+  21. the data pipeline on record files, at a few microscope sessions'
+      size: (a) `PIPELINE_EPISODES` episodes of the phase 19c rehearsal
+      (no aligner) recorded by `MicroscopeAgentLogger` (128^2 frames), the
+      logger's TFRecord file equal to the trajectories' bytes, decoded
+      trajectories equal to the recorded ones, written and read back as
+      TFRecord and as riegeli with every codec the machine has (payloads
+      equal); (b) the `align_trajectories` CLI in a subprocess on the
+      logger's file: the first `PIPELINE_ALIGNED` of its trajectories
+      within `ALIGNMENT_FOV_TOL` of `do_alignment` in memory; (c)
+      `trajectories_to_transitions` and `train_rate_learner` on the aligned
+      file, at the shipped widths (only the epochs cut, see
+      PIPELINE_RATE_EPOCHS): drop reasons, the first and last epoch's loss,
+      the saved predictor as a learned-rate planner's rate function finite
+      and positive; (d) the
+      detector's record dataset (256^2 noisy, 2 shards of 64) and 4 train
+      steps from `records:<dir>` at the shipped widths, a train and a data
+      step timed beside phase 20's; `noise_chain`, `clahe_small` and the
+      pair launched; (e) TFRecord and riegeli MB/s and the wire codec's us
+      an observation, on the host, the atomic grids' also through the
+      codec's object per atom; (f) `noise_chain`, `clahe_small` and the
+      pair against their twins on the frames the pipeline gave them;
+  22. a `kernels` JSON line; 23. the result JSON line, last.
 
 It imports nothing of JAX or of putting_dune_tpu (the shipped weights are
 read as data).
@@ -1307,14 +1328,17 @@ def _hardware_loop(dev, smi, path_launches, tmp):
   # -- 19b. do_alignment recovers the simulator's own drift ------------------
   inc_errs, err_aligned, err_nothing = [], [], []
   fov_err, cpu_s = 0.0, 0.0
+  align_args = align_trajectories.Args(
+      source_path='', target_path='',
+      aligner_workdir=alignment.SHIPPED_ALIGNER_DIR)
   for seed in ALIGNMENT_SEEDS:
     obs, true_drift = microscope_agent.drifting_sequence(seed, device=dev)
     trajectory = md.Trajectory(tuple(obs))
     aligned = align_trajectories.do_alignment(
-        trajectory, align_trajectories.Args(), aligner)
+        trajectory, align_args, aligner)
     t0 = time.perf_counter()
     on_cpu = align_trajectories.do_alignment(
-        trajectory, align_trajectories.Args(), cpu_aligner)
+        trajectory, align_args, cpu_aligner)
     cpu_s += time.perf_counter() - t0
     for a, c in zip(aligned.observations, on_cpu.observations):
       fov_err = max(fov_err, float(np.abs(np.concatenate([
@@ -1866,6 +1890,378 @@ def _hold_trainer_kernels(dev, recorded) -> dict:
   errs['clahe_small (32, 128, 128)'] = _hold_clahe_small(
       render['image'], kw, "20e clahe_small (32, 128, 128) on the aligner's "
       'frames')
+  return errs
+
+
+# Phase 21 records the phase 19c rehearsal (`greedy_on_neighbor`, 0.5 A a
+# frame per axis, 128^2 renders) for PIPELINE_EPISODES episodes of
+# REHEARSAL_STEPS steps: a few microscope sessions' worth of frames. 21b
+# aligns all of them and holds the first PIPELINE_ALIGNED to do_alignment
+# in memory; 21c trains the rate learner on the aligned file at the shipped
+# widths (train_rate_learner's defaults: 100 models, hidden (128, 128),
+# batch 256, bootstrap), with the epochs cut from 500 to
+# PIPELINE_RATE_EPOCHS, then distils it as the CLI does, with the epochs
+# cut from 10,000 to PIPELINE_DISTILL_EPOCHS (batch 4096, 10 batches an
+# epoch, as phase 17).
+PIPELINE_EPISODES = 32
+PIPELINE_ALIGNED = 8
+PIPELINE_RATE_EPOCHS = 10
+PIPELINE_DISTILL_EPOCHS = 20
+# 21d: the detector's record dataset, 256^2 noisy scenes, 2 shards of 64,
+# and 4 train steps from it at the shipped widths, batch 32.
+PIPELINE_DETECTOR_EXAMPLES = 128
+
+
+def data_pipeline(dev, smi, path_launches, synthetic_detector) -> dict:
+  """Phase 21 (see the module docstring); returns the numbers it read. Its
+  files are a temporary directory, removed after."""
+  import tempfile
+
+  recorded = {}
+  with tempfile.TemporaryDirectory(prefix='smoke_pipeline_') as tmp:
+    with _recording_inputs(recorded):
+      out = _data_pipeline(dev, smi, path_launches, synthetic_detector, tmp)
+  out['twins'] = _hold_pipeline_kernels(dev, recorded)
+  return out
+
+
+def _mb_s(nbytes: int, seconds: float) -> float:
+  return nbytes / 1e6 / seconds
+
+
+def _data_pipeline(dev, smi, path_launches, synthetic_detector, tmp) -> dict:
+  import numpy as np
+  import torch
+
+  from putting_dune_torch import microscope_agent
+  from putting_dune_torch import microscope_data as md
+  from putting_dune_torch import registry
+  from putting_dune_torch.agents import planner as planner_lib
+  from putting_dune_torch.agents import vision_planner
+  from putting_dune_torch.atom_detection import data as det_data
+  from putting_dune_torch.atom_detection import train as det_train
+  from putting_dune_torch.image_alignment import inference as alignment
+  from putting_dune_torch.io import records
+  from putting_dune_torch.io import riegeli_native
+  from putting_dune_torch.ops import _build
+  from putting_dune_torch.pipeline import align_trajectories
+  from putting_dune_torch.pipeline import train_rate_learner
+  from putting_dune_torch.pipeline import trajectories_to_transitions
+  from putting_dune_torch.proto import wire
+  from putting_dune_torch.rate_learning import config as rate_config
+  from putting_dune_torch.rate_learning import data_utils
+  from putting_dune_torch.rate_learning import predictor as predictor_lib
+
+  out = {}
+  _build.reset_launches()
+
+  # -- 21a. record the rehearsal; TFRecord and riegeli, back and forth -------
+  t0 = time.perf_counter()
+  experiment = registry.create_microscope_experiment('greedy_on_neighbor')
+  rng = np.random.default_rng(21)
+  logdir = os.path.join(tmp, 'logs')
+  logger = microscope_agent.MicroscopeAgentLogger(
+      microscope_agent.MicroscopeAgent(rng, experiment, device=dev),
+      logdir=logdir)
+  for seed in range(PIPELINE_EPISODES):
+    mic = microscope_agent.SimulatedMicroscope(
+        seed=seed, drift_per_frame_angstroms=0.5, image_size=128, device=dev)
+    microscope_agent.rehearse(mic, logger, np.random.default_rng(seed), None,
+                              steps=REHEARSAL_STEPS)
+  torch.cuda.synchronize()
+  record_s = time.perf_counter() - t0
+  t1 = time.perf_counter()
+  logger.flush()
+  flush_s = time.perf_counter() - t1
+  trajectories = logger.trajectories
+  observations = [o for t in trajectories for o in t.observations]
+  frames = len(observations)
+  check(len(trajectories) == PIPELINE_EPISODES
+        and frames == PIPELINE_EPISODES * REHEARSAL_STEPS,
+        f'21a: recorded {len(trajectories)} episodes, {frames} frames')
+  t1 = time.perf_counter()
+  payloads = [t.to_proto_bytes() for t in trajectories]
+  encode_us = 1e6 * (time.perf_counter() - t1) / frames
+  nbytes = sum(map(len, payloads))
+  t1 = time.perf_counter()
+  decoded = [md.Trajectory.from_proto_bytes(p) for p in payloads]
+  decode_us = 1e6 * (time.perf_counter() - t1) / frames
+  image_bytes = observations[0].image.nbytes
+  print(f'21a recorded {PIPELINE_EPISODES} episodes x {REHEARSAL_STEPS} steps '
+        f'({frames} frames of {observations[0].image.shape} '
+        f'{observations[0].image.dtype}, {image_bytes} bytes an image) in '
+        f'{record_s:.2f} s; the logger wrote trajectories.tfrecords and the '
+        f'CSVs in {flush_s:.2f} s; {nbytes} bytes of records', flush=True)
+  tf_path = os.path.join(logdir, 'trajectories.tfrecords')
+  check(records.read_tfrecords(tf_path) == payloads,
+        '21a: the logger\'s TFRecord file differs from the trajectories')
+  for got, want in zip(decoded, trajectories):
+    check(len(got.observations) == len(want.observations),
+          '21a: a decoded trajectory lost observations')
+    for a, b in zip(got.observations, want.observations):
+      check(np.array_equal(a.image, b.image) and a.grid == b.grid
+            and [c.dwell_time for c in a.controls]
+            == [c.dwell_time for c in b.controls],
+            '21a: a decoded observation differs from the recorded one')
+      check(np.allclose(a.fov.lower_left, b.fov.lower_left, rtol=0,
+                        atol=1e-5 * max(1.0, np.abs(b.fov.lower_left).max())),
+            '21a: a decoded FOV differs beyond float32 rounding')
+  check(all(d.to_proto_bytes() == p for d, p in zip(decoded, payloads)),
+        '21a: re-encoding a decoded trajectory changes its bytes')
+  codecs = riegeli_native.available_codecs()
+  io = {}
+  paths = {'tfrecords': os.path.join(tmp, 'trajectories.tfrecords')}
+  for codec in ['tfrecords'] + codecs:
+    path = paths.setdefault(codec, os.path.join(tmp, f'{codec}.riegeli'))
+    t1 = time.perf_counter()
+    if codec == 'tfrecords':
+      records.write_records(path, payloads)
+    else:
+      riegeli_native.write_riegeli_records(path, payloads, compression=codec)
+    write_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    back = records.read_records(path)
+    read_s = time.perf_counter() - t1
+    check(back == payloads, f'21a: {codec} payloads differ after the trip')
+    io[codec] = dict(write_mb_s=_mb_s(nbytes, write_s),
+                     read_mb_s=_mb_s(nbytes, read_s),
+                     file_mb=os.path.getsize(path) / 1e6)
+  check(records.read_records(paths['tfrecords'], md.Trajectory)[0]
+        .to_proto_bytes() == payloads[0], '21a: TFRecord decode differs')
+  print(f'21a the card\'s machine has the riegeli codecs {codecs}; '
+        f'TFRecord and riegeli with each read back equal to what was '
+        f'written; decoded trajectories equal the recorded ones', flush=True)
+  # -- 21e. throughput on the host --------------------------------------------
+  for codec, row in io.items():
+    print(f"21e {codec}: write {row['write_mb_s']:.1f} MB/s, read "
+          f"{row['read_mb_s']:.1f} MB/s of {nbytes / 1e6:.2f} MB of records "
+          f"({row['file_mb']:.2f} MB on disk); host of {smi}", flush=True)
+  print(f'21e wire codec: {encode_us:.1f} us an observation to encode, '
+        f'{decode_us:.1f} us to decode ({frames} observations of '
+        f'{nbytes / frames / 1e3:.1f} kB); host of {smi}', flush=True)
+  # The atomic grids alone: their numpy pass against the codec's object an
+  # atom, on the same observations.
+  grids = [o.grid for o in observations]
+  t1 = time.perf_counter()
+  grid_bytes = [g.to_proto_bytes() for g in grids]
+  grid_encode_us = 1e6 * (time.perf_counter() - t1) / frames
+  t1 = time.perf_counter()
+  generic_bytes = [g.to_proto().SerializeToString() for g in grids]
+  generic_encode_us = 1e6 * (time.perf_counter() - t1) / frames
+  check(generic_bytes == grid_bytes,
+        '21e: the grid fast path\'s bytes differ from the codec\'s')
+  t1 = time.perf_counter()
+  for b in grid_bytes:
+    md.AtomicGrid.from_proto_bytes(b)
+  grid_decode_us = 1e6 * (time.perf_counter() - t1) / frames
+  t1 = time.perf_counter()
+  for b in grid_bytes:
+    md.AtomicGrid.from_proto(wire.AtomicGrid.FromString(b))
+  generic_decode_us = 1e6 * (time.perf_counter() - t1) / frames
+  atoms = np.mean([g.num_atoms for g in grids])
+  print(f'21e atomic grids ({atoms:.0f} atoms on average): encode '
+        f'{grid_encode_us:.1f} us an observation by the numpy pass, '
+        f'{generic_encode_us:.1f} us by an object an atom; decode '
+        f'{grid_decode_us:.1f} / {generic_decode_us:.1f} us; host of {smi}',
+        flush=True)
+  out['record'] = dict(episodes=PIPELINE_EPISODES, frames=frames,
+                       record_bytes=nbytes, record_s=record_s,
+                       codecs=codecs, io=io, encode_us_per_obs=encode_us,
+                       decode_us_per_obs=decode_us,
+                       grid_us_per_obs=dict(
+                           encode=grid_encode_us,
+                           encode_per_atom=generic_encode_us,
+                           decode=grid_decode_us,
+                           decode_per_atom=generic_decode_us))
+
+  # -- 21b. align_trajectories on the logger's file, as a subprocess ---------
+  t0 = time.perf_counter()
+  align_out = os.path.join(tmp, 'aligned.riegeli')
+  env = dict(os.environ, PYTHONPATH=ROOT)
+  argv = [sys.executable, '-m', 'putting_dune_torch.pipeline.'
+          'align_trajectories', f'--source_path={tf_path}',
+          f'--target_path={align_out}',
+          f'--aligner_workdir={alignment.SHIPPED_ALIGNER_DIR}']
+  run = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=300)
+  cli_s = time.perf_counter() - t0
+  print(f'21b align_trajectories CLI on {PIPELINE_EPISODES} trajectories: rc '
+        f'{run.returncode} in {cli_s:.2f} s; {run.stdout.strip()[-200:]}',
+        flush=True)
+  check(run.returncode == 0, f'21b: align_trajectories failed: '
+        f'{run.stderr[-2000:]}')
+  aligner = alignment.ImageAligner.from_checkpoint(device=dev)
+  args = align_trajectories.Args(
+      source_path=tf_path, target_path=align_out,
+      aligner_workdir=alignment.SHIPPED_ALIGNER_DIR)
+  t1 = time.perf_counter()
+  in_memory = [align_trajectories.do_alignment(t, args, aligner)
+               for t in trajectories[:PIPELINE_ALIGNED]]
+  memory_s = time.perf_counter() - t1
+  from_cli = records.read_records(align_out, md.Trajectory)
+  check(len(from_cli) == PIPELINE_EPISODES
+        and all(len(t.observations) == REHEARSAL_STEPS for t in from_cli),
+        '21b: aligned trajectories lost')
+  fov_err = 0.0
+  for got, want in zip(from_cli, in_memory):
+    for a, b in zip(got.observations, want.observations):
+      # The file holds the FOVs as float32.
+      fov_err = max(fov_err, float(np.abs(np.concatenate([
+          a.fov.lower_left - b.fov.lower_left,
+          a.fov.upper_right - b.fov.upper_right])).max()))
+  shift = float(np.mean([np.linalg.norm(
+      t.observations[-1].fov.lower_left - r.observations[-1].fov.lower_left)
+      for t, r in zip(in_memory, trajectories)]))
+  print(f'21b the CLI\'s file against do_alignment in memory '
+        f'(the first {PIPELINE_ALIGNED}, {memory_s:.2f} s for '
+        f'{PIPELINE_ALIGNED * REHEARSAL_STEPS} frames): '
+        f'FOVs max|d| {fov_err:.3g} A (bar {ALIGNMENT_FOV_TOL}); mean '
+        f'correction of the last frame {shift:.3f} A', flush=True)
+  check(fov_err <= ALIGNMENT_FOV_TOL,
+        '21b: the aligned file differs from do_alignment in memory')
+  out['align'] = dict(cli_s=cli_s, memory_s=memory_s, fov_err=fov_err,
+                      last_frame_correction=shift)
+
+  # -- 21c. transitions, then the rate learner at the shipped widths ----------
+  t0 = time.perf_counter()
+  transitions_path = os.path.join(tmp, 'transitions.riegeli')
+  n_transitions = trajectories_to_transitions.main([
+      f'--source_path={align_out}', f'--target_path={transitions_path}',
+      '--previous_controls_at_current_timestep'])
+  t2t_s = time.perf_counter() - t0
+  check(n_transitions == PIPELINE_EPISODES * (REHEARSAL_STEPS - 1)
+        and len(records.read_records(transitions_path)) == n_transitions,
+        '21c: transitions miscounted')
+  workdir = os.path.join(tmp, 'rates')
+  rate_args = train_rate_learner._parse_args([
+      f'--source_path={align_out}', f'--workdir={workdir}',
+      f'--epochs={PIPELINE_RATE_EPOCHS}',
+      f'--epoch_chunk={PIPELINE_RATE_EPOCHS}', '--nodistill',
+      '--noplot_metrics', '--novisualize_rates',
+      '--previous_controls_at_current_timestep'])
+  check((rate_args.num_models, rate_args.hidden_dimensions,
+         rate_args.batch_size, rate_args.bootstrap) ==
+        (100, (128, 128), 256, True), '21c: not the shipped widths')
+  t1 = time.perf_counter()
+  stacked, counts, predictor = train_rate_learner.main(rate_args)
+  # The CLI's distillation, with its epochs cut (PIPELINE_DISTILL_EPOCHS).
+  predictor.distill(
+      data_utils.augment_data(**{
+          k: torch.as_tensor(stacked[k], device=dev)
+          for k in ('next_state', 'dt', 'rates', 'position', 'context')}),
+      rate_config.DistillConfig(epochs=PIPELINE_DISTILL_EPOCHS))
+  predictor.save(workdir)
+  torch.cuda.synchronize()
+  train_s = time.perf_counter() - t1
+  metrics = np.load(os.path.join(workdir, 'metrics.npz'))
+  loss = metrics['train_loss']
+  first, last = float(loss[:, 0].mean()), float(loss[:, -1].mean())
+  print(f'21c trajectories_to_transitions: {n_transitions} transitions in '
+        f'{t2t_s:.2f} s; train_rate_learner (100 models, hidden (128, 128), '
+        f'batch 256, bootstrap; epochs 500 -> {PIPELINE_RATE_EPOCHS}, '
+        f'distillation epochs 10000 -> {PIPELINE_DISTILL_EPOCHS}) in '
+        f'{train_s:.2f} s on {len(stacked["dt"])} datapoints; drop reasons '
+        f'{json.dumps(counts)}; mean loss ({loss.shape[0]} models) first '
+        f'epoch {first:.4f}, last {last:.4f}; metrics {metrics.files}',
+        flush=True)
+  check(counts['kept'] > 0 and np.isfinite(loss).all(),
+        '21c: no datapoints kept or the loss is not finite')
+  check(predictor.num_models == 1, '21c: the predictor was not distilled')
+  saved = predictor_lib.LearnedRatePredictor(device=dev)
+  saved.load(workdir)
+  # The rehearsal's controls carry no voltage or current, which stack_data
+  # reads as 0: the model knows that context only.
+  planner = planner_lib.PlannerAgent(
+      rate_fn=saved.as_rate_function(voltage_kv=0.0, current_na=0.0),
+      dwell_seconds=1.5, device=dev)
+  gen = torch.Generator(device=dev).manual_seed(21)
+  angles = torch.tensor([90.0, 210.0, 330.0], device=dev) * np.pi / 180
+  neighbors = 1.42 * torch.stack([torch.cos(angles), torch.sin(angles)], -1)
+  si = torch.rand((4096, 2), generator=gen, device=dev) * 10.0
+  beam = si + (torch.rand((4096, 2), generator=gen, device=dev) - 0.5) * 6.0
+  rates = planner.rate_fn(si, si[:, None, :] + neighbors, beam)
+  check(bool(torch.isfinite(rates).all()) and bool((rates > 0).all()),
+        '21c: the learned planner\'s rates are not finite and positive')
+  print(f'21c the saved predictor as the planner\'s rate function (0 kV, '
+        f'0 nA) on 4096 beams within 3 A of a silicon: rates finite and '
+        f'positive, in '
+        f'[{float(rates.min()):.4g}, {float(rates.max()):.4g}] per s',
+        flush=True)
+  out['rates'] = dict(transitions=n_transitions, counts=counts,
+                      datapoints=int(len(stacked['dt'])), train_s=train_s,
+                      loss_first=first, loss_last=last,
+                      rate_min=float(rates.min()), rate_max=float(rates.max()))
+
+  # -- 21d. the detector's record dataset and the trainer from it -------------
+  t0 = time.perf_counter()
+  det_dir = os.path.join(tmp, 'detector_records')
+  written = det_data.write_dataset(
+      det_dir, num_examples=PIPELINE_DETECTOR_EXAMPLES, seed=21,
+      gen_batch_size=64, image_size=256, noisy=True, examples_per_shard=64,
+      device=dev)
+  write_s = time.perf_counter() - t0
+  shards = sorted(os.listdir(det_dir))
+  check(written == PIPELINE_DETECTOR_EXAMPLES and len(shards) == 2,
+        f'21d: wrote {written} examples in {shards}')
+  shipped_dir = vision_planner.SHIPPED_DETECTOR_DIR
+  config = det_train.Config(
+      workdir=os.path.join(tmp, 'det'), image_size=256, batch_size=32,
+      epochs=1, steps_per_epoch=4, eval_steps=1, noisy_images=True,
+      features=tuple(det_train.load_arch(shipped_dir)['features']),
+      data_source=f'records:{det_dir}', seed=21)
+  history = []
+  t1 = time.perf_counter()
+  state = det_train.train(config, device=dev,
+                          progress=lambda e, m: history.append(m))
+  torch.cuda.synchronize()
+  train_s = time.perf_counter() - t1
+  check(len(history) == 1 and np.isfinite(history[0]['loss']),
+        '21d: the detector trained from records has no finite loss')
+  stream = det_data.records_dataset_iterator(det_dir, 1, batch_size=32,
+                                             device=dev)
+  batch = next(stream)
+  data_ms = time_ms(lambda: next(stream), repeats=8, warmup=1)
+  step_ms = time_ms(lambda: det_train.train_step(state, batch),
+                    repeats=10, warmup=2)
+  print(f'21d write_dataset: {written} noisy 256^2 scenes in {len(shards)} '
+        f'shards in {write_s:.2f} s; atom_detection.train '
+        f'--data_source=records:<dir> (features {config.features}, batch 32, '
+        f'4 steps, 1 eval step) in {train_s:.2f} s, {json.dumps(history)}; '
+        f'a train step {step_ms:.3f} ms, a data step from records '
+        f'{data_ms:.3f} ms (phase 20 synthetic: train step '
+        f"{synthetic_detector.get('step_ms', float('nan')):.3f} ms, data step "
+        f"{synthetic_detector.get('data_ms', float('nan')):.3f} ms); on {smi}",
+        flush=True)
+  out['detector'] = dict(examples=written, write_s=write_s, train_s=train_s,
+                         step_ms=step_ms, data_ms=data_ms, history=history)
+  counted = dict(_build.LAUNCHES)
+  path_launches['data_pipeline'] = counted
+  print(f'21: the data pipeline launched {counted}', flush=True)
+  for kernel in ('noise_chain', 'clahe_small', 'clahe_hist_lut',
+                 'clahe_remap'):
+    check(counted.get(kernel, 0) > 0, f'21: the pipeline launched no {kernel}')
+  return out
+
+
+def _hold_pipeline_kernels(dev, recorded) -> dict:
+  """Phase 21f: each kernel the pipeline launched against its twin on the
+  inputs the pipeline gave it."""
+  import torch
+
+  gen = torch.Generator(device=dev).manual_seed(21)
+  errs = {}
+  for shape in ((1, 128, 128), (64, 256, 256)):
+    errs[f'noise_chain {shape}'] = _hold_noise_chain(
+        dev, _recorded(recorded, 'noise_chain', shape, '21f'),
+        "21f on the pipeline's clean frames:", gen)
+  render = _recorded(recorded, 'clahe_small', (1, 128, 128), '21f')
+  kw = {k: render[k] for k in ('clip_limit', 'grid_size', 'nbins')}
+  errs['clahe_small (1, 128, 128)'] = _hold_clahe_small(
+      render['image'], kw, "21f clahe_small (1, 128, 128) on a recorded "
+      'render')
+  errs['clahe_pair (64, 256, 256)'] = _hold_clahe_pair(
+      _recorded(recorded, 'clahe_hist_lut', (64, 256, 256), '21f'),
+      "21f clahe_hist_lut + clahe_remap on the detector's record frames")
   return errs
 
 
@@ -2658,10 +3054,17 @@ def main() -> None:
   print(f'perception training summary ({time.perf_counter() - t0:.1f} s): '
         f'{json.dumps(summary)}', flush=True)
 
-  print(f'phases 1-20 in {time.perf_counter() - t_smoke:.1f} s on {smi}',
+  # -- 21. the data pipeline ------------------------------------------------------
+  t0 = time.perf_counter()
+  summary = data_pipeline(dev, smi, path_launches,
+                          summary.get('detector', {}))
+  print(f'data pipeline summary ({time.perf_counter() - t0:.1f} s): '
+        f'{json.dumps(summary)}', flush=True)
+
+  print(f'phases 1-21 in {time.perf_counter() - t_smoke:.1f} s on {smi}',
         flush=True)
 
-  # -- 21. kernels line --------------------------------------------------------
+  # -- 22. kernels line --------------------------------------------------------
   kernels = []
   for name, (ms, plain_ms, err, bound_ms, bound_by, source) in rows.items():
     by_path = {path: counts[name] for path, counts in path_launches.items()}

@@ -6,7 +6,9 @@ entropy against the one-hot mask (class-weighted when `class_weights` is
 set: sum(ce * w) / max(sum(w), 1)), argmax accuracy, and optax's
 `adamw(learning_rate)` as a torch AdamW (`utils/training.adamw`). The
 scenes come from `data.dataset_iterator` on the device (the noise chain
-and CLAHE kernels at every batch); the best checkpoint by eval accuracy is
+and CLAHE kernels at every batch), or with data_source='records:<dir>'
+from a written dataset (`data.records_dataset_iterator`; eval on its
+`test/` split, or on generated scenes where it has none); the best checkpoint by eval accuracy is
 kept with `utils/checkpoints.CheckpointManager`, which stands in for
 orbax. Training runs in full float32 (TF32 off) unless a step is asked
 for TF32.
@@ -18,8 +20,7 @@ reads (`params.msgpack`) and the `arch.json` sidecar; `load_params` reads
   python -m putting_dune_torch.atom_detection.train --workdir=runs/det \
       --epochs=1 --steps_per_epoch=2 --eval_steps=1 [--device=cpu]
 
-Not ported: `data_source='records:...'` (the IO slice) and `mesh=` (the
-multi-GPU slice).
+Not ported: `mesh=` (the multi-GPU slice).
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ class Config:
   # Warm-start params from this workdir (params.msgpack, or its best
   # checkpoint) when the run has no checkpoint of its own yet.
   init_params_from: str = ''
-  # Only 'synthetic' is ported; 'records:<dir>' waits for the IO slice.
+  # 'synthetic' (generated scenes) or 'records:<dir>' (a written dataset).
   data_source: str = 'synthetic'
 
 
@@ -144,15 +145,16 @@ def train(config: Config, *, device=None, progress=None,
   if config.init_params_from:
     warm = load_params(config.init_params_from)
     state.model.load_state_dict(model_lib.params_from_flax(warm))
-  train_iter = data_lib.dataset_iterator(
-      config.seed, noisy_fraction=config.noisy_fraction,
-      batch_size=config.batch_size, image_size=config.image_size,
-      grid_columns=config.grid_columns, noisy=config.noisy_images,
-      device=device)
-  eval_iter = data_lib.dataset_iterator(
-      config.seed + 1, batch_size=config.batch_size,
-      image_size=config.image_size, grid_columns=config.grid_columns,
-      noisy=config.noisy_images, device=device)
+
+  def synthetic(seed, train):
+    return data_lib.dataset_iterator(
+        seed, noisy_fraction=config.noisy_fraction if train else None,
+        batch_size=config.batch_size, image_size=config.image_size,
+        grid_columns=config.grid_columns, noisy=config.noisy_images,
+        device=device)
+
+  train_iter, eval_iter = training.data_streams(config, data_lib, device,
+                                                synthetic)
   return training.run_epochs(
       config, state, best_fn, train_iter, eval_iter,
       lambda s, b: train_step(s, b, config.class_weights)[1],

@@ -7,7 +7,8 @@ drifts by a per-step U(-max_drift_per_step, max_drift_per_step) per axis
 (frame 0 undrifted), each atom jittered by N(0, jitter_scale^2) per frame,
 positions in the undrifted material frame, a fixed node capacity per
 frame and a mask. Labels are each frame's drift less the final frame's.
-No kernel runs here. The record-backed source waits for the IO slice.
+No kernel runs here. `write_dataset` and `records_dataset_iterator` write
+and read such stacks as a record dataset (the JAX package's schema).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from putting_dune_torch import device as device_lib
 from putting_dune_torch import lattice as lattice_lib
 from putting_dune_torch import simulator as simulator_lib
+from putting_dune_torch.io import datasets
 
 
 def sample_batch(
@@ -87,3 +89,54 @@ def dataset_iterator(
         gen, lattice, batch_size=batch_size, num_frames=num_frames,
         capacity=capacity, max_drift_per_step=max_drift_per_step,
         jitter_scale=jitter_scale)
+
+
+# --- record-backed dataset source --------------------------------------------
+# Schema: {'positions': (T K, 2) f32, 'atomic_numbers': (T K,) i32,
+#  'mask': (T K,) bool, 'frame_ids': (T K,) i32, 'drift': (T, 2) f32}.
+
+
+def write_dataset(
+    records_dir: str,
+    *,
+    num_examples: int,
+    seed: int = 0,
+    gen_batch_size: int = 64,
+    num_frames: int = 2,
+    capacity: int = 256,
+    grid_columns: int = 50,
+    max_drift_per_step: float = 1.0,
+    jitter_scale: float = 0.05,
+    test_examples: int = 0,
+    examples_per_shard: int = 256,
+    device=None,
+) -> int:
+  """Draws point-cloud stacks on `device` and writes them as TFRecord
+  shards; returns the number of train examples written (staged and
+  published whole, `io/datasets.write_split_dataset`)."""
+
+  def batches(stream: int):
+    return dataset_iterator(
+        seed + stream, batch_size=gen_batch_size, num_frames=num_frames,
+        capacity=capacity, grid_columns=grid_columns,
+        max_drift_per_step=max_drift_per_step, jitter_scale=jitter_scale,
+        device=device)
+
+  return datasets.write_generated(
+      records_dir, batches, num_examples=num_examples,
+      test_examples=test_examples, examples_per_shard=examples_per_shard)
+
+
+def records_dataset_iterator(
+    records_dir: str,
+    seed: int,
+    *,
+    batch_size: int,
+    split: str = 'train',
+    shuffle: bool = True,
+    device=None,
+) -> Iterator[Dict[str, torch.Tensor]]:
+  """Endless point-cloud batches of a written dataset on `device`, in place
+  of `dataset_iterator`; batch_size is per process."""
+  return datasets.split_batches(records_dir, seed, batch_size=batch_size,
+                                split=split, shuffle=shuffle, device=device)

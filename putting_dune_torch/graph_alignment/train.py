@@ -6,13 +6,14 @@ summed square of the global head's (B, T, 2) drifts against the labels,
 plus local_loss_weight times the mean square of the masked local head;
 `drift_error` is the mean norm. optax's adamw as a torch AdamW
 (`utils/training.adamw`), full float32 (TF32 off). No kernel runs on
-this path: the point clouds come from the simulator's atom windows.
+this path: the point clouds come from the simulator's atom windows, or
+with data_source='records:<dir>' from a written dataset (eval on its
+`test/` split where it has one).
 
   python -m putting_dune_torch.graph_alignment.train --workdir=runs/gnn \
       --epochs=1 --steps_per_epoch=2 --eval_steps=1 [--device=cpu]
 
-Not ported: `data_source='records:...'` (the IO slice) and `mesh=` (the
-multi-GPU slice).
+Not ported: `mesh=` (the multi-GPU slice).
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ class Config:
   k: int = 8
   local_loss_weight: float = 0.0
   grid_columns: int = 50
-  # Only 'synthetic' is ported; 'records:<dir>' waits for the IO slice.
+  # 'synthetic' (generated clouds) or 'records:<dir>' (a written dataset).
   data_source: str = 'synthetic'
 
 
@@ -119,8 +120,9 @@ def train(config: Config, *, device=None, progress=None,
   stream = dict(batch_size=config.batch_size, num_frames=config.num_frames,
                 capacity=config.capacity, grid_columns=config.grid_columns,
                 device=device)
-  train_iter = data_lib.dataset_iterator(config.seed, **stream)
-  eval_iter = data_lib.dataset_iterator(config.seed + 1, **stream)
+  train_iter, eval_iter = training.data_streams(
+      config, data_lib, device,
+      lambda seed, train: data_lib.dataset_iterator(seed, **stream))
   return training.run_epochs(
       config, state, best_fn, train_iter, eval_iter,
       lambda s, b: train_step(s, b, config.local_loss_weight)[1],

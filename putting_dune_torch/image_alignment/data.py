@@ -22,8 +22,10 @@ min-max normalized, as `ImageAligner.__call__` sees it.
 
 The PRNG streams differ from the JAX package's (Philox against threefry),
 so the two agree in law; `tests/test_torch_perception_train.py` holds them
-to each other by KS and z-tests. The record-backed source waits for the
-IO slice.
+to each other by KS and z-tests. `write_dataset` and
+`records_dataset_iterator` write and read such stacks as a record dataset
+({'images': (S, S, T), 'mask': (S, S, 3 T), 'drift': (T, 2)} f32 examples,
+the JAX package's schema).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from putting_dune_torch.atom_detection import data as det_data
 from putting_dune_torch.imaging import clahe as clahe_lib
 from putting_dune_torch.imaging import morphology
 from putting_dune_torch.imaging import render as render_lib
+from putting_dune_torch.io import datasets
 
 
 def _min_max(frame: torch.Tensor) -> torch.Tensor:
@@ -163,6 +166,61 @@ def dataset_iterator(
         registration_noise=registration_noise,
         inference_preprocessing=inference_preprocessing,
         seed_fraction=seed_fraction)
+
+
+# --- record-backed dataset source --------------------------------------------
+
+
+def write_dataset(
+    records_dir: str,
+    *,
+    num_examples: int,
+    seed: int = 0,
+    gen_batch_size: int = 16,
+    image_size: int = 128,
+    num_frames: int = 5,
+    grid_columns: int = 50,
+    noisy: bool = False,
+    noisy_fraction: Optional[float] = None,
+    max_drift_per_step: float = 1.0,
+    registration_noise: float = 0.0,
+    inference_preprocessing: bool = False,
+    seed_fraction: float = 0.0,
+    test_examples: int = 0,
+    examples_per_shard: int = 128,
+    device=None,
+) -> int:
+  """Renders drift stacks on `device` and writes them as TFRecord shards;
+  returns the number of train examples written (staged and published
+  whole, `io/datasets.write_split_dataset`)."""
+
+  def batches(stream: int):
+    return dataset_iterator(
+        seed + stream, batch_size=gen_batch_size, image_size=image_size,
+        num_frames=num_frames, grid_columns=grid_columns, noisy=noisy,
+        noisy_fraction=noisy_fraction, max_drift_per_step=max_drift_per_step,
+        registration_noise=registration_noise,
+        inference_preprocessing=inference_preprocessing,
+        seed_fraction=seed_fraction, device=device)
+
+  return datasets.write_generated(
+      records_dir, batches, num_examples=num_examples,
+      test_examples=test_examples, examples_per_shard=examples_per_shard)
+
+
+def records_dataset_iterator(
+    records_dir: str,
+    seed: int,
+    *,
+    batch_size: int,
+    split: str = 'train',
+    shuffle: bool = True,
+    device=None,
+) -> Iterator[Dict[str, torch.Tensor]]:
+  """Endless {'images', 'mask', 'drift'} batches of a written dataset on
+  `device`, in place of `dataset_iterator`; batch_size is per process."""
+  return datasets.split_batches(records_dir, seed, batch_size=batch_size,
+                                split=split, shuffle=shuffle, device=device)
 
 
 def examples_from_labeled_trajectory(

@@ -10,13 +10,13 @@ drift_loss_weight * drift_loss with optax's adamw (`utils/training.adamw`)
 in full float32 (TF32 off). The stacks come
 from `data.dataset_iterator` on the device (`noise_chain` and
 `clahe_small` each frame; `clahe_small` twice with
-inference_preprocessing). The best checkpoint by -drift_error is kept.
+inference_preprocessing), or with data_source='records:<dir>' from a
+written dataset (eval on its `test/` split where it has one). The best checkpoint by -drift_error is kept.
 
   python -m putting_dune_torch.image_alignment.train --workdir=runs/align \
       --epochs=1 --steps_per_epoch=2 --eval_steps=1 [--device=cpu]
 
-Not ported: `data_source='records:...'` (the IO slice) and `mesh=` (the
-multi-GPU slice).
+Not ported: `mesh=` (the multi-GPU slice).
 """
 
 from __future__ import annotations
@@ -66,7 +66,7 @@ class Config:
   seed_fraction: float = 0.0
   # Warm-start params from this workdir when the run has no checkpoint.
   init_params_from: str = ''
-  # Only 'synthetic' is ported; 'records:<dir>' waits for the IO slice.
+  # 'synthetic' (generated stacks) or 'records:<dir>' (a written dataset).
   data_source: str = 'synthetic'
   # Weight on the segmentation CE (0 for real trajectories, maskless).
   ce_loss_weight: float = 1.0
@@ -159,11 +159,14 @@ def train(config: Config, *, device=None, progress=None,
       registration_noise=config.registration_noise,
       inference_preprocessing=config.inference_preprocessing,
       seed_fraction=config.seed_fraction, device=device)
-  train_iter = data_lib.dataset_iterator(
-      config.seed, noisy=config.noisy_images,
-      noisy_fraction=config.noisy_fraction, **stream)
-  eval_iter = data_lib.dataset_iterator(
-      config.seed + 1, noisy=config.noisy_images, **stream)
+
+  def synthetic(seed, train):
+    return data_lib.dataset_iterator(
+        seed, noisy=config.noisy_images,
+        noisy_fraction=config.noisy_fraction if train else None, **stream)
+
+  train_iter, eval_iter = training.data_streams(config, data_lib, device,
+                                                synthetic)
   step = lambda s, b: train_step(  # noqa: E731
       s, b, config.drift_loss_weight, config.num_frames,
       config.final_step_only, config.ce_loss_weight)[1]

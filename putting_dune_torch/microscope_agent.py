@@ -12,13 +12,17 @@ interface (drift, renders and all) with the ground truth a real instrument
 never shows, so that the whole loop, with the learned `ImageAligner`
 correcting the drift, can be rehearsed before touching hardware.
 
-`MicroscopeAgentLogger` (trajectory records and CSVs) is not ported: it
-writes record files, which need the protobuf wire codec.
+`MicroscopeAgentLogger` wraps an agent and records each episode's
+observations as a Trajectory record file (`trajectories.tfrecords`), with
+step and episode CSVs.
 """
 
 from __future__ import annotations
 
+import csv
+import dataclasses
 import datetime as dt
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -32,6 +36,7 @@ from putting_dune_torch import rates as rates_lib
 from putting_dune_torch import simulator as simulator_lib
 from putting_dune_torch import structures
 from putting_dune_torch.env import dm_env_wrapper
+from putting_dune_torch.io import records
 
 
 class HostSingleSiliconGoal:
@@ -151,6 +156,119 @@ class MicroscopeAgent:
     self._is_first_step = False
     return host_relative_material_adapter(
         observation, np.asarray(action), self._dwell_seconds)
+
+
+@dataclasses.dataclass
+class StepRecord:
+  episode: int
+  episode_step: int
+  reward: float
+  elapsed_seconds: float
+  terminal: bool
+
+
+@dataclasses.dataclass
+class EpisodeRecord:
+  episode: int
+  episode_steps: int
+  episode_return: float
+  episode_goal: Optional[Tuple[float, float]]
+
+
+class MicroscopeAgentLogger:
+  """Records an agent's episodes: every observation it is given goes into
+  the episode's Trajectory, written with the step and episode CSVs on
+  `flush()` (or on leaving a `with` block without an error) as
+  `logdir`/trajectories.tfrecords, steps.csv and episodes.csv. Everything
+  else is the wrapped agent's."""
+
+  def __init__(self, agent: MicroscopeAgent, *, logdir: str):
+    self._agent = agent
+    self._logdir = logdir
+    os.makedirs(logdir, exist_ok=True)
+    self._episode = 0
+    self._episode_step = 0
+    self._episode_return = 0.0
+    self._current_trajectory: List[md.MicroscopeObservation] = []
+    self._trajectories: List[md.Trajectory] = []
+    self._step_records: List[StepRecord] = []
+    self._episode_records: List[EpisodeRecord] = []
+
+  def __getattr__(self, name):
+    return getattr(self._agent, name)
+
+  def __enter__(self) -> 'MicroscopeAgentLogger':
+    return self
+
+  def __exit__(self, exc_type, exc_val, exc_tb):
+    if exc_type is None:
+      self.flush()
+
+  @property
+  def trajectories(self) -> List[md.Trajectory]:
+    """The finished episodes' trajectories, in order."""
+    return list(self._trajectories)
+
+  def _episode_record(self) -> EpisodeRecord:
+    goal = self._agent.goal.goal_position_material_frame
+    return EpisodeRecord(
+        episode=self._episode,
+        episode_steps=self._episode_step,
+        episode_return=self._episode_return,
+        episode_goal=(float(goal[0]), float(goal[1])),
+    )
+
+  def reset(self, rng, observation) -> None:
+    if self._episode_step > 0:
+      self._episode += 1
+      self._episode_records.append(self._episode_record())
+    if self._current_trajectory:
+      self._trajectories.append(
+          md.Trajectory(tuple(self._current_trajectory)))
+    self._episode_step = 0
+    self._episode_return = 0.0
+    self._current_trajectory = []
+    return self._agent.reset(rng, observation)
+
+  def step(self, observation) -> List[md.BeamControl]:
+    controls = self._agent.step(observation)
+    try:
+      reward, terminal, _ = self._agent.goal.calculate_reward_and_terminal(
+          observation)
+    except md.SiliconNotFoundError:
+      reward, terminal = 0.0, False
+    self._episode_step += 1
+    self._episode_return += reward
+    self._current_trajectory.append(observation)
+    self._step_records.append(StepRecord(
+        episode=self._episode,
+        episode_step=self._episode_step,
+        reward=reward,
+        elapsed_seconds=observation.elapsed_time.total_seconds(),
+        terminal=terminal,
+    ))
+    return controls
+
+  def flush(self) -> None:
+    if self._current_trajectory:
+      self._trajectories.append(
+          md.Trajectory(tuple(self._current_trajectory)))
+      self._current_trajectory = []
+    if self._episode_step != 0:
+      self._episode_records.append(self._episode_record())
+    records.write_records(
+        os.path.join(self._logdir, 'trajectories.tfrecords'),
+        self._trajectories)
+    for name, rows, cls in (
+        ('steps.csv', self._step_records, StepRecord),
+        ('episodes.csv', self._episode_records, EpisodeRecord),
+    ):
+      with open(os.path.join(self._logdir, name), 'w', newline='') as f:
+        writer = csv.DictWriter(
+            f, fieldnames=[fld.name for fld in dataclasses.fields(cls)])
+        writer.writeheader()
+        for row in rows:
+          writer.writerow(dataclasses.asdict(row))
 
 
 class SimulatedMicroscope:

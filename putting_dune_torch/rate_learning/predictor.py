@@ -55,11 +55,11 @@ class LearnedRatePredictor:
     self.position_dim = position_dim
     self._build(config, config.num_models)
 
-  def _build(self, config, num_models):
+  def _build(self, config, num_models, context_dim: Optional[int] = None):
     self.config = config
     self.num_models = num_models
-    self.context_dim = (self.position_dim + int(config.use_current)
-                        + int(config.use_voltage))
+    self.context_dim = context_dim or (
+        self.position_dim + int(config.use_current) + int(config.use_voltage))
     self.model = model_lib.RateMLP(
         num_models, self.context_dim, config.hidden_dimensions,
         self.num_states, config.batchnorm, config.dropout_rate,
@@ -146,7 +146,8 @@ class LearnedRatePredictor:
     ensemble the predictor holds, freshly initialised at construction (the
     JAX package draws a fresh one here, from the same law), or from a fresh
     one of config.num_models when the predictor holds another number of
-    models (after `distill` or `load`). Returns the metrics
+    models (after `distill` or `load`) or another input width than the
+    data's. Returns the metrics
     {name: (M, epochs)}."""
     if bootstrap is None:
       bootstrap = self.config.bootstrap
@@ -157,8 +158,13 @@ class LearnedRatePredictor:
     train_sets, test_sets = train_lib.create_dataset_splits(
         host, self.config.num_models, seed=seed, bootstrap=bootstrap,
         augment=self.config.augment_data, test_fraction=self.config.val_frac)
-    if self.num_models != self.config.num_models:
-      self._build(self.config, self.config.num_models)
+    # The data's width wins, as in the JAX package, whose trainer draws
+    # its ensemble for the data (a dwell column in the context, say).
+    width = (host['context'].reshape(len(host['context']), -1).shape[1]
+             + host['position'].shape[-1])
+    if (self.num_models != self.config.num_models
+        or width != self.context_dim):
+      self._build(self.config, self.config.num_models, width)
     self.model, _, metrics = train_lib.train_multiple_models(
         train_sets, test_sets, self.generator, self.config.num_models,
         self.config, epoch_chunk=epoch_chunk, progress=progress,
@@ -205,18 +211,23 @@ class LearnedRatePredictor:
 
   def load(self, load_dir: str, step: int = 0) -> None:
     """Reads what `save` (of either package) wrote. The stored config and
-    `num_models_current` win over this instance's."""
+    `num_models_current` win over this instance's, and the input width is
+    the checkpoint's (a classification network's context holds the dwell
+    time too)."""
+    with open(os.path.join(load_dir, f'{step}.ckpt'), 'rb') as f:
+      params = serialization.unpackb(f.read())
+    config, num_models = self.config, self.num_models
     config_path = os.path.join(load_dir, 'config.json')
     if os.path.exists(config_path):
       with open(config_path) as f:
         cfg = json.load(f)
-      num_current = cfg.pop('num_models_current', cfg.get('num_models'))
+      num_models = cfg.pop('num_models_current', cfg.get('num_models'))
       cfg['hidden_dimensions'] = tuple(cfg['hidden_dimensions'])
-      stored = config_lib.RateLearningConfig(**cfg)
-      if stored != self.config or num_current != self.num_models:
-        self._build(stored, num_current)
-    with open(os.path.join(load_dir, f'{step}.ckpt'), 'rb') as f:
-      params = serialization.unpackb(f.read())
+      config = config_lib.RateLearningConfig(**cfg)
+    width = int(np.shape(params['Dense_0']['kernel'])[1])
+    if (config != self.config or num_models != self.num_models
+        or width != self.context_dim):
+      self._build(config, num_models, width)
     stats = {}
     state_path = os.path.join(load_dir, f'{step}.state.ckpt')
     if os.path.exists(state_path):
@@ -232,9 +243,9 @@ def predictor_from_flax(params: Mapping, state: Mapping,
   """The port's predictor holding a JAX predictor's params and batch_stats
   (numpy trees with a leading model axis, as `LearnedRatePredictor.params`
   and `.state` are there)."""
-  num_models = int(np.asarray(params['Dense_0']['kernel']).shape[0])
+  num_models, width = np.shape(params['Dense_0']['kernel'])[:2]
   predictor = LearnedRatePredictor(config=config, device=device)
-  if num_models != predictor.num_models:
-    predictor._build(config, num_models)
+  if (num_models, width) != (predictor.num_models, predictor.context_dim):
+    predictor._build(config, int(num_models), int(width))
   predictor.model.load_flax_trees(params, state)
   return predictor

@@ -80,11 +80,32 @@ def check_config(config) -> None:
         'steps_per_epoch and eval_steps cannot both be 0: every epoch '
         'must produce at least one metric for the best-checkpoint '
         'manager (a checkpoint-flush-only run should set eval_steps>=1).')
-  if config.data_source != 'synthetic':
-    raise NotImplementedError(
-        f'data_source={config.data_source!r}: record-backed datasets wait '
-        'for the IO slice (ROADMAP queue 1, IO); use '
-        "data_source='synthetic'.")
+  from putting_dune_torch.io import datasets
+
+  datasets.parse_data_source(config.data_source)  # raises on an unknown one
+
+
+def data_streams(config, data_lib, device, synthetic):
+  """(train_iter, eval_iter) of a trainer. With data_source 'synthetic'
+  both come from `synthetic(seed, train)` (seeds config.seed and
+  config.seed + 1); with 'records:<dir>' the train stream reads the
+  dataset's train split and the eval stream its `test/` split, or the
+  synthetic eval stream where the dataset has none."""
+  from putting_dune_torch.io import datasets
+
+  records_dir = datasets.parse_data_source(config.data_source)
+  if records_dir is None:
+    return synthetic(config.seed, True), synthetic(config.seed + 1, False)
+  train_iter = data_lib.records_dataset_iterator(
+      records_dir, config.seed, batch_size=config.batch_size, split='train',
+      device=device)
+  try:
+    eval_iter = data_lib.records_dataset_iterator(
+        records_dir, config.seed + 1, batch_size=config.batch_size,
+        split='test', device=device)
+  except FileNotFoundError:
+    eval_iter = synthetic(config.seed + 1, False)
+  return train_iter, eval_iter
 
 
 def manager(workdir: str, best_fn: Callable[[Mapping[str, float]], float],

@@ -175,8 +175,9 @@ def _torch_alignment(seed, aligner, frames=12):
   from putting_dune_torch.pipeline import align_trajectories as at
 
   observations, drifts = ma.drifting_sequence(seed, frames, device='cpu')
-  aligned = at.do_alignment(md.Trajectory(tuple(observations)), at.Args(),
-                            aligner)
+  aligned = at.do_alignment(
+      md.Trajectory(tuple(observations)),
+      at.Args(source_path='', target_path='', aligner_workdir=''), aligner)
   recovered = np.stack([a.fov.lower_left - o.fov.lower_left
                         for a, o in zip(aligned.observations, observations)])
   return _alignment_errors(recovered, drifts)

@@ -239,7 +239,7 @@ def test_training_improves_drift_error(tmp_path):
   assert sorted(params) == sorted(loaded)
 
 
-def test_train_cli_parses_as_jax(monkeypatch):
+def test_train_cli_parses_as_jax(monkeypatch, tmp_path):
   import sys
 
   from putting_dune_tpu.utils import cli as j_cli
@@ -252,6 +252,7 @@ def test_train_cli_parses_as_jax(monkeypatch):
                       '')
   got, _ = t_cli.parse(t_train.Config, '', argv)
   assert dataclasses.asdict(got) == dataclasses.asdict(seen['c'])
-  with pytest.raises(NotImplementedError, match='IO'):
-    t_train.train(dataclasses.replace(got, data_source='records:x'),
-                  device='cpu')
+  with pytest.raises(FileNotFoundError, match='part-'):
+    t_train.train(dataclasses.replace(
+        got, workdir=str(tmp_path / 'w'),
+        data_source=f'records:{tmp_path / "x"}'), device='cpu')

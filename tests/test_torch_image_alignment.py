@@ -176,8 +176,10 @@ def test_do_alignment_matches_jax_and_tracks_the_drift(
       _trajectories(j_md, sequence),
       j_align.Args(source_path='', target_path='', aligner_workdir=WEIGHTS),
       jax_aligner)
-  t_out = t_align.do_alignment(_trajectories(t_md, sequence),
-                               t_align.Args(), torch_aligner)
+  t_out = t_align.do_alignment(
+      _trajectories(t_md, sequence),
+      t_align.Args(source_path='', target_path='', aligner_workdir=WEIGHTS),
+      torch_aligner)
   j_ll = np.stack([o.fov.lower_left for o in j_out.observations])
   t_ll = np.stack([o.fov.lower_left for o in t_out.observations])
   np.testing.assert_allclose(t_ll, j_ll, atol=1e-4)

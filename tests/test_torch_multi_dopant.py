@@ -68,7 +68,8 @@ def _gen(seed):
 
 def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
   banned = ('jax', 'flax', 'putting_dune_tpu', 'optax', 'orbax', 'cv2',
-            'sklearn', 'dm_env', 'google', 'matplotlib', 'networkx')
+            'sklearn', 'dm_env', 'google', 'matplotlib', 'networkx',
+            'tensorflow', 'riegeli', 'array_record', 'google_crc32c')
   sources = sorted((REPO / 'putting_dune_torch').rglob('*.py'))
   sources.append(REPO / 'chip_smoke.py')
   assert len(sources) > 30
@@ -92,7 +93,13 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                  'graph_alignment/__init__', 'graph_alignment/model',
                  'graph_alignment/data', 'graph_alignment/train',
                  'utils/__init__', 'utils/checkpoints', 'utils/cli',
-                 'utils/training', 'utils/profiling', 'imaging/noise'):
+                 'utils/training', 'utils/profiling', 'imaging/noise',
+                 'proto/__init__', 'proto/wire', 'io/__init__', 'io/native',
+                 'io/records', 'io/riegeli_native', 'io/tensorproto',
+                 'io/datasets', 'io/artifacts', 'io/png',
+                 'pipeline/convert_riegeli', 'pipeline/import_microscope_data',
+                 'pipeline/import_tfds_dataset', 'pipeline/train_rate_learner',
+                 'simulator_observers', 'atom_detection/data'):
     assert f'putting_dune_torch/{module}.py' in names
   for path in sources:
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -500,9 +500,16 @@ def test_eval_steps_zero_falls_back_to_train_metrics(tmp_path):
 
 @pytest.mark.parametrize('module', [t_det_train, t_align_train])
 def test_records_source_and_default_device(module, tmp_path):
-  config = module.Config(workdir=str(tmp_path), data_source='records:/x')
-  with pytest.raises(NotImplementedError, match='IO'):
+  # A records source is read (tests/test_torch_record_datasets.py trains
+  # from one); a directory without shards raises when the first batch is
+  # drawn, an unknown source at once.
+  config = module.Config(workdir=str(tmp_path / 'w'),
+                         data_source=f'records:{tmp_path / "none"}')
+  with pytest.raises(FileNotFoundError, match='part-'):
     module.train(config, device='cpu')
+  with pytest.raises(ValueError, match='data_source'):
+    module.train(dataclasses.replace(config, data_source='tfds:x'),
+                 device='cpu')
   if not torch.cuda.is_available():
     with pytest.raises(RuntimeError, match='CUDA is not available'):
       module.create_state(module.Config(workdir=str(tmp_path)))
