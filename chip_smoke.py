@@ -195,7 +195,26 @@ Phases (any failure exits non-zero before the final line):
       an observation, on the host, the atomic grids' also through the
       codec's object per atom; (f) `noise_chain`, `clahe_small` and the
       pair against their twins on the frames the pipeline gave them;
-  22. a `kernels` JSON line; 23. the result JSON line, last.
+  22. plots, videos and the mesh at world 1: (a) `ppo_simple_images_tf`
+      (512^2 render) on VIDEO_SEEDS seeds with VIDEO_ENVS episode videos:
+      results equal to the same seeds without videos, each GIF `steps + 1`
+      frames with frame 0 bit-equal to the raster frame rebuilt from a
+      reset on the evaluator's stream, ms a frame to rasterise and to
+      encode, MB written; the host evaluator writes seed 0's GIF; (b)
+      `DmEnvWrapper.render()` (500, 500, 3) uint8, not blank; (c) the
+      rate-learner CLI in a subprocess on phase 21's aligned file with its
+      plot flags (21c's epochs, --nodistill): every `{k}.png` and
+      `avg_context_rates.png` decodes through io/png.py; (d) `nccl` at
+      world 1 over a localhost TCP store: `train_ppo --mesh=data:1` at 18b's
+      128^2 pixel config for MESH_PPO_UPDATES updates equal to the
+      unsharded run within 1e-6 (`noise_chain` and `clahe_small` once a
+      step), `eval --mesh=data:1` per seed equal to the unsharded run, the
+      rate learner's model axis equal to the plain ensemble, the PPO dry
+      run, one update timed with and without the process group, and
+      `--mesh=data:2` refused on one card; (e) `noise_chain`, the pair and
+      `clahe_small` against their twins on the frames (a) and (d) gave
+      them;
+  23. a `kernels` JSON line; 24. the result JSON line, last.
 
 It imports nothing of JAX or of putting_dune_tpu (the shipped weights are
 read as data).
@@ -1912,15 +1931,20 @@ PIPELINE_DISTILL_EPOCHS = 20
 PIPELINE_DETECTOR_EXAMPLES = 128
 
 
-def data_pipeline(dev, smi, path_launches, synthetic_detector) -> dict:
+def data_pipeline(dev, smi, path_launches, synthetic_detector,
+                  keep_aligned=None) -> dict:
   """Phase 21 (see the module docstring); returns the numbers it read. Its
-  files are a temporary directory, removed after."""
+  files are a temporary directory, removed after; the aligned file is
+  copied to `keep_aligned` when given (phase 22c reads it)."""
+  import shutil
   import tempfile
 
   recorded = {}
   with tempfile.TemporaryDirectory(prefix='smoke_pipeline_') as tmp:
     with _recording_inputs(recorded):
       out = _data_pipeline(dev, smi, path_launches, synthetic_detector, tmp)
+    if keep_aligned:
+      shutil.copy(os.path.join(tmp, 'aligned.riegeli'), keep_aligned)
   out['twins'] = _hold_pipeline_kernels(dev, recorded)
   return out
 
@@ -2241,6 +2265,329 @@ def _data_pipeline(dev, smi, path_launches, synthetic_detector, tmp) -> dict:
                  'clahe_remap'):
     check(counted.get(kernel, 0) > 0, f'21: the pipeline launched no {kernel}')
   return out
+
+
+# Phase 22 records VIDEO_ENVS episode videos of `ppo_simple_images_tf`
+# (512^2 render) from the first of VIDEO_SEEDS seeds, and one from the host
+# evaluator; times RASTER_REPEATS frames; runs the rate-learner CLI with its
+# plot flags on phase 21's aligned file (epochs cut as 21c, distillation
+# off: the CLI distils for 10,000 epochs); then the mesh at world 1: the
+# train CLI at phase 18b's pixel PPO configuration (128^2 render, batch
+# 256, rollout 16, shaping 0.05) for MESH_PPO_UPDATES updates with and
+# without --mesh=data:1, the eval CLI with and without it, and the rate
+# learner's model axis.
+VIDEO_SEEDS = 8
+VIDEO_ENVS = 4
+RASTER_REPEATS = 20
+MESH_PPO_UPDATES = 2
+
+
+def _sync(dev) -> None:
+  import torch
+
+  if dev.type == 'cuda':
+    torch.cuda.synchronize(dev)
+
+
+def plots_and_mesh(dev, smi, path_launches, aligned_path) -> dict:
+  """Phase 22 (see the module docstring); returns the numbers it read. Its
+  files are a temporary directory, removed after."""
+  import tempfile
+
+  recorded = {}
+  with tempfile.TemporaryDirectory(prefix='smoke_plots_') as tmp:
+    with _recording_inputs(recorded):
+      out = _plots_and_mesh(dev, smi, path_launches, aligned_path, tmp)
+  out['twins'] = _hold_phase22_kernels(dev, recorded)
+  return out
+
+
+def _same_results(a, b) -> bool:
+  import dataclasses
+  import math
+
+  def key(r):
+    return tuple('nan' if isinstance(v, float) and math.isnan(v) else v
+                 for v in dataclasses.astuple(r))
+
+  return [key(r) for r in a] == [key(r) for r in b]
+
+
+def _plots_and_mesh(dev, smi, path_launches, aligned_path, tmp) -> dict:
+  import numpy as np
+  import torch
+
+  from putting_dune_torch import eval as eval_cli
+  from putting_dune_torch import eval_lib
+  from putting_dune_torch import plotting_utils
+  from putting_dune_torch import registry
+  from putting_dune_torch import run_helpers
+  from putting_dune_torch.agents import eval_agent
+  from putting_dune_torch.agents import ppo
+  from putting_dune_torch.agents import train_ppo
+  from putting_dune_torch.env import env as env_lib
+  from putting_dune_torch.io import gif
+  from putting_dune_torch.io import png
+  from putting_dune_torch.ops import _build
+  from putting_dune_torch.parallel import mesh as mesh_lib
+  from putting_dune_torch.rate_learning import config as rate_config
+  from putting_dune_torch.rate_learning import data_utils
+  from putting_dune_torch.rate_learning import train as rate_train
+
+  out = {}
+  device_flag = [] if dev.type == 'cuda' else ['--device=cpu']
+
+  # -- 22a. videos from the pixel eval -----------------------------------------
+  name = 'ppo_simple_images_tf'
+  experiment = registry.create_eval_experiment(name)
+  seeds = list(range(VIDEO_SEEDS))
+
+  def video_env():
+    return run_helpers.create_batched_env(
+        experiment.get_adapters_and_goal, experiment.get_simulator_config,
+        batch_size=len(seeds), device=dev)
+
+  policy = eval_cli.policy_for_agent(
+      experiment.get_policy(experiment.get_adapters_and_goal(), dev))
+  plain = eval_lib.evaluate_batched(video_env(), policy, seeds)
+  video_dir = os.path.join(tmp, 'videos')
+  env = video_env()
+  _build.reset_launches()
+  _sync(dev)
+  t0 = time.perf_counter()
+  taped = eval_lib.evaluate_batched(env, policy, seeds,
+                                    video_save_dir=video_dir,
+                                    video_envs=VIDEO_ENVS)
+  _sync(dev)
+  seconds = time.perf_counter() - t0
+  counted = dict(_build.LAUNCHES)
+  path_launches['video_eval_512'] = counted
+  check(_same_results(plain, taped),
+        '22a: the run with videos differs from the run without')
+  for kernel in ('noise_chain', 'clahe_hist_lut', 'clahe_remap'):
+    check(counted[kernel] > 0, f'22a: {kernel} was not launched')
+  # Frame 0 again, from a reset on the evaluator's stream.
+  state, _ = env.reset(env_lib.make_generator(eval_lib.suite_seed(seeds),
+                                              dev))
+  pose = [x.cpu().numpy()[None] for x in eval_lib.video_pose(state,
+                                                             VIDEO_ENVS)]
+  first = dict(zip(('si', 'offset', 'theta', 'goal'), pose))
+  written, frames = 0, 0
+  for i, result in enumerate(taped[:VIDEO_ENVS]):
+    path = os.path.join(video_dir, f'{result.seed}.gif')
+    with open(path, 'rb') as f:
+      data = f.read()
+    written += len(data)
+    video = gif.decode(data, limit=1)
+    frames += video.count
+    check(video.count == result.num_actions_taken + 1,
+          f'22a: {path} holds {video.count} frames, '
+          f'{result.num_actions_taken + 1} expected')
+    positions, numbers, goal = eval_lib.video_scenes(env.lattice, first, i, 1)
+    want = plotting_utils.generate_video_from_trajectory(
+        positions, numbers, goal_position=goal).frames[0]
+    check(np.array_equal(video.frames[0], want),
+          f'22a: {path} frame 0 differs from the raster frame')
+  palette = plotting_utils.raster.Palette()
+  t0 = time.perf_counter()
+  for _ in range(RASTER_REPEATS):
+    index = plotting_utils.episode_frame(positions[0], numbers[0], palette, 0,
+                                         goal)
+  raster_ms = 1e3 * (time.perf_counter() - t0) / RASTER_REPEATS
+  t0 = time.perf_counter()
+  for _ in range(RASTER_REPEATS):
+    gif.lzw_encode(index, 8)
+  encode_ms = 1e3 * (time.perf_counter() - t0) / RASTER_REPEATS
+  print(f'22a {name} at 512^2, {VIDEO_SEEDS} seeds with {VIDEO_ENVS} '
+        f'videos: {seconds:.2f} s, results equal to the run without videos; '
+        f'{frames} frames, {written / 1e6:.3f} MB written; a frame '
+        f'{raster_ms:.3f} ms to rasterise ({len(positions[0])} atoms, 500 x '
+        f'500) and {encode_ms:.3f} ms to LZW-encode, on the host; frame 0 of '
+        f'each GIF bit-equal to the raster frame; launches {counted}',
+        flush=True)
+  out['videos'] = dict(seconds=seconds, frames=frames, mb=written / 1e6,
+                       raster_ms=raster_ms, encode_ms=encode_ms,
+                       launches=counted)
+
+  host_env = run_helpers.create_putting_dune_env(
+      0, experiment.get_adapters_and_goal, experiment.get_simulator_config,
+      device=dev)
+  agent = registry.host_agent(experiment, np.random.default_rng(0),
+                              experiment.get_adapters_and_goal(), dev)
+  host_dir = os.path.join(tmp, 'host')
+  (result,) = eval_lib.evaluate(agent, host_env, [0],
+                                video_save_dir=host_dir)
+  with open(os.path.join(host_dir, '0.gif'), 'rb') as f:
+    host_video = gif.decode(f.read(), limit=1)
+  print(f'22a host evaluator, seed 0: {result.num_actions_taken} actions, '
+        f'{host_video.count} frames', flush=True)
+  check(host_video.count == result.num_actions_taken + 1,
+        '22a: the host evaluator\'s GIF misses frames')
+
+  # -- 22b. render() -------------------------------------------------------------
+  image = host_env.render()
+  print(f'22b DmEnvWrapper.render(): {image.shape} {image.dtype}, '
+        f'{len(np.unique(image.reshape(-1, 3), axis=0))} colours', flush=True)
+  check(image.shape == (500, 500, 3) and image.dtype == np.uint8
+        and float(image.std()) > 0, '22b: render() is blank or misshapen')
+  del env, host_env, agent
+  torch.cuda.empty_cache()
+
+  # -- 22c. the rate-learner CLI with its plot flags ----------------------------
+  workdir = os.path.join(tmp, 'rates')
+  t0 = time.perf_counter()
+  run = subprocess.run(
+      [sys.executable, '-m', 'putting_dune_torch.pipeline.train_rate_learner',
+       f'--source_path={aligned_path}', f'--workdir={workdir}',
+       f'--epochs={PIPELINE_RATE_EPOCHS}',
+       f'--epoch_chunk={PIPELINE_RATE_EPOCHS}', '--nodistill',
+       '--previous_controls_at_current_timestep', *device_flag],
+      cwd=ROOT, capture_output=True, text=True, timeout=600)
+  cli_s = time.perf_counter() - t0
+  check(run.returncode == 0, '22c: train_rate_learner failed:\n'
+        + run.stdout[-2000:] + run.stderr[-2000:])
+  pngs = sorted(f for f in os.listdir(workdir) if f.endswith('.png'))
+  shapes = {}
+  for f in pngs:
+    with open(os.path.join(workdir, f), 'rb') as fh:
+      img = png.imdecode(fh.read())
+    shapes[f] = list(img.shape)
+    check(float(img.std()) > 0, f'22c: {f} is blank')
+  want = sorted([f'{k}.png' for k in rate_train.METRIC_NAMES]
+                + ['avg_context_rates.png'])
+  print(f'22c train_rate_learner CLI (100 models, epochs '
+        f'{PIPELINE_RATE_EPOCHS}, --nodistill, plot flags on) in '
+        f'{cli_s:.2f} s: {shapes}', flush=True)
+  check(pngs == want and os.path.exists(os.path.join(workdir, 'metrics.npz')),
+        f'22c: wrote {pngs}, expected {want} and metrics.npz')
+  out['rate_cli'] = dict(seconds=cli_s, pngs=shapes)
+
+  # -- 22d. the mesh at world 1 -------------------------------------------------
+  ppo_argv = ['--train_experiment=relative_simple_rates_from_images',
+              '--batch_size=256', f'--num_updates={MESH_PPO_UPDATES}',
+              '--rollout_length=16', '--reward_shaping=0.05',
+              '--render_size=128', '--eval_suite=', *device_flag]
+  plain_dir, mesh_dir = os.path.join(tmp, 'ppo'), os.path.join(tmp, 'mesh')
+  # cuDNN's default backward algorithms sum in no fixed order, so two
+  # unsharded runs differ too; with cuDNN's deterministic ones (and every
+  # other op as by default) they agree (scripts/ppo_determinism.py).
+  torch.backends.cudnn.deterministic = True
+  try:
+    train_ppo.main(ppo_argv + [f'--workdir={plain_dir}'])
+    _build.reset_launches()
+    _sync(dev)
+    t0 = time.perf_counter()
+    train_ppo.main(ppo_argv + [f'--workdir={mesh_dir}', '--mesh=data:1'])
+    _sync(dev)
+    mesh_s = time.perf_counter() - t0
+  finally:
+    torch.backends.cudnn.deterministic = False
+  counted = dict(_build.LAUNCHES)
+  path_launches['mesh_ppo_128'] = counted
+  steps = MESH_PPO_UPDATES * 16
+  check(counted['noise_chain'] == steps + 1
+        and counted['clahe_small'] == steps + 1,
+        '22d: noise_chain and clahe_small not once a step and reset')
+  params = [eval_agent.read_flax_params(os.path.join(d, 'policy',
+                                                     'policy.ckpt'))
+            for d in (plain_dir, mesh_dir)]
+  ppo_diff = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                 for a, b in zip(_leaves(params[0]), _leaves(params[1])))
+  print(f'22d train_ppo --mesh=data:1 (nccl over a localhost TCP store), '
+        f'{MESH_PPO_UPDATES} pixel PPO updates at 128^2 in {mesh_s:.2f} s '
+        f'(cuDNN\'s deterministic algorithms, both runs): params max|d| '
+        f'{ppo_diff:.3g} against --mesh=\'\' (bar 1e-6); '
+        f'launches {counted}', flush=True)
+  check(ppo_diff <= 1e-6, '22d: the world-1 mesh PPO params differ')
+
+  eval_argv = ['--experiment_name=greedy_simple_rates', *device_flag]
+  unsharded = eval_cli.main(eval_cli._parse_args(eval_argv))['results']
+  sharded = eval_cli.main(eval_cli._parse_args(eval_argv + ['--mesh=data:1'])
+                          )['results']
+  print(f'22d eval --mesh=data:1 greedy_simple_rates tiny_eval: per-seed '
+        f'results equal to the unsharded run: '
+        f'{_same_results(sharded, unsharded)}', flush=True)
+  check(_same_results(sharded, unsharded),
+        '22d: the world-1 mesh eval differs from the unsharded run')
+
+  with contextlib.ExitStack() as stack:
+    mesh_lib.initialize_distributed(f'localhost:{mesh_lib.free_port()}', 1, 0,
+                                    device=dev)
+    stack.callback(mesh_lib.shutdown)
+    data, _ = data_utils.generate_synthetic_data(num_data=4096, device=dev)
+    data = {k: v.cpu().numpy() for k, v in data.items()}
+    config = rate_config.RateLearningConfig(batch_size=256, epochs=3,
+                                            num_models=8)
+    train_sets, test_sets = rate_train.create_dataset_splits(data, 8, seed=0)
+    ensembles = []
+    for mesh in (None, mesh_lib.make_mesh([1], ('model',), device=dev)):
+      model, _, _ = rate_train.train_multiple_models(
+          train_sets, test_sets,
+          torch.Generator(device=dev).manual_seed(0), 8, config, device=dev,
+          mesh=mesh)
+      ensembles.append(model.state_dict())
+    rate_diff = max(float((ensembles[0][k] - ensembles[1][k]).abs().max())
+                    for k in ensembles[0])
+    dry = ppo.dryrun_mesh_training_step(mesh_lib.make_mesh(device=dev))
+    print(f'22d rate learner model axis at world 1 (8 models, 3 epochs): '
+          f'max|d| {rate_diff:.3g} against the plain ensemble; PPO dry run '
+          f'loss {dry["loss"]:.4f}, spread {dry["spread"]}', flush=True)
+    check(rate_diff <= 1e-6, '22d: the model axis differs at world 1')
+
+    # The all-reduces' cost at world 1: one more update of the 18b config
+    # with and without the process group.
+    exp = registry.create_train_experiment(
+        'relative_simple_rates_from_images')
+    ppo_env = run_helpers.create_batched_env(
+        exp.get_adapters_and_goal, exp.get_simulator_config, batch_size=256,
+        image_size=128, device=dev)
+    config = ppo.PPOConfig(num_updates=1, rollout_length=16,
+                           reward_shaping_coef=0.05)
+    timings = {}
+    for label, mesh in (('without', None),
+                        ('with', mesh_lib.make_mesh(device=dev))):
+      trainer = ppo.PPOTrainer(ppo_env, config, mesh)
+      carry = trainer.init_carry(0)
+      time_update(trainer, carry)
+      timings[label] = time_update(trainer, carry)
+    print(f'22d one PPO update at 128^2 (batch 256): without the process '
+          f'group {timings["without"][0]:.4f} ms a rollout step, '
+          f'{timings["without"][1]:.4f} ms a gradient step; with it '
+          f'{timings["with"][0]:.4f} ms, {timings["with"][1]:.4f} ms (the '
+          f'gradient and metric all-reduces, on {smi})', flush=True)
+  try:
+    train_ppo.main(ppo_argv + [f'--workdir={tmp}/refused', '--mesh=data:2'])
+    refused = ''
+  except ValueError as e:
+    refused = str(e)
+  print(f'22d --mesh=data:2 on one card: {refused!r}', flush=True)
+  check('wants 2 devices' in refused,
+        '22d: --mesh=data:2 was not refused on one card')
+  out['mesh'] = dict(ppo_diff=ppo_diff, rate_diff=rate_diff, seconds=mesh_s,
+                     launches=counted, update_ms=timings)
+  return out
+
+
+def _hold_phase22_kernels(dev, recorded) -> dict:
+  """Phase 22e: max|d| of each kernel against its twin on the frames the
+  video eval (512^2) and the mesh PPO run (128^2) gave it."""
+  import torch
+
+  gen = torch.Generator(device=dev).manual_seed(22)
+  errs = {}
+  for size, batch in ((512, VIDEO_SEEDS), (128, 256)):
+    args = _recorded(recorded, 'noise_chain', (batch, size, size), '22e')
+    errs[f'noise_chain_{size}'] = _hold_noise_chain(
+        dev, args, '22e on the video eval\'s and mesh PPO\'s renders:', gen)
+  errs['clahe_pair_512'] = _hold_clahe_pair(
+      _recorded(recorded, 'clahe_hist_lut', (VIDEO_SEEDS, 512, 512), '22e'),
+      '22e clahe_hist_lut + clahe_remap on the video eval\'s frames')
+  render = _recorded(recorded, 'clahe_small', (256, 128, 128), '22e')
+  kw = {k: render[k] for k in ('clip_limit', 'grid_size', 'nbins')}
+  errs['clahe_small_128'] = _hold_clahe_small(
+      render['image'], kw, '22e clahe_small (256, 128, 128) on the mesh PPO '
+      'run\'s renders')
+  return errs
 
 
 def _hold_pipeline_kernels(dev, recorded) -> dict:
@@ -3054,17 +3401,27 @@ def main() -> None:
   print(f'perception training summary ({time.perf_counter() - t0:.1f} s): '
         f'{json.dumps(summary)}', flush=True)
 
-  # -- 21. the data pipeline ------------------------------------------------------
-  t0 = time.perf_counter()
-  summary = data_pipeline(dev, smi, path_launches,
-                          summary.get('detector', {}))
-  print(f'data pipeline summary ({time.perf_counter() - t0:.1f} s): '
-        f'{json.dumps(summary)}', flush=True)
+  import tempfile
 
-  print(f'phases 1-21 in {time.perf_counter() - t_smoke:.1f} s on {smi}',
+  with tempfile.TemporaryDirectory(prefix='smoke_aligned_') as kept:
+    aligned = os.path.join(kept, 'aligned.riegeli')
+    # -- 21. the data pipeline ----------------------------------------------------
+    t0 = time.perf_counter()
+    summary = data_pipeline(dev, smi, path_launches,
+                            summary.get('detector', {}), keep_aligned=aligned)
+    print(f'data pipeline summary ({time.perf_counter() - t0:.1f} s): '
+          f'{json.dumps(summary)}', flush=True)
+
+    # -- 22. plots, videos and the mesh at world 1 --------------------------------
+    t0 = time.perf_counter()
+    summary = plots_and_mesh(dev, smi, path_launches, aligned)
+    print(f'plots and mesh summary ({time.perf_counter() - t0:.1f} s): '
+          f'{json.dumps(summary)}', flush=True)
+
+  print(f'phases 1-22 in {time.perf_counter() - t_smoke:.1f} s on {smi}',
         flush=True)
 
-  # -- 22. kernels line --------------------------------------------------------
+  # -- 23. kernels line --------------------------------------------------------
   kernels = []
   for name, (ms, plain_ms, err, bound_ms, bound_by, source) in rows.items():
     by_path = {path: counts[name] for path, counts in path_launches.items()}

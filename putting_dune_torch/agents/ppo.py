@@ -19,10 +19,25 @@ action noises and the permutations are drawn from the generator unless the
 caller passes them (`run_updates(..., noise=, perms=)`), which is how the
 tests hold a whole update to the JAX package.
 
+Data parallel (`mesh=`, parallel/mesh.py): each rank steps its own envs
+(`env` is the rank's share, batch_size = global / N) with the parameters
+replicated. The update is the single-device update on the global rollout:
+the minibatch permutation is global, drawn from a generator every rank
+shares (so is the initialisation), and each rank takes the loss of the
+samples it holds in each global minibatch over the global minibatch size;
+the advantages of the minibatch are normalised over all of it, and the
+gradients are all-reduce-summed before `clip_by_global_norm_`, so Adam
+runs identically everywhere. The env streams (reset, action noises, env
+steps) of rank r come from `process_data_seed(seed)`: an N-rank run is
+another sample of the same law, where JAX's GSPMD run equals its
+single-device run draw for draw. One `learn` serves every rank count: at
+one rank the generators are one, the minibatch is not split and the
+all-reduces change nothing.
+
 Precision: on CUDA the forward passes and the whole update, backward
-included, run under `cudnn.flags(enabled=True, allow_tf32=False)`, so the
-convolutions and their gradients compute in full float32 as the JAX
-package does on the CPU; matmuls follow `torch.backends.cuda.matmul.
+included, run under `cudnn.flags(enabled=True, allow_tf32=False)` (with
+the caller's `cudnn.deterministic`), so the convolutions and their
+gradients compute in full float32 as the JAX package does on the CPU; matmuls follow `torch.backends.cuda.matmul.
 allow_tf32`, which PyTorch leaves off.
 """
 
@@ -41,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from putting_dune_torch import constants
+from putting_dune_torch.parallel import mesh as mesh_lib
 from putting_dune_torch.rate_learning import model as model_lib
 
 METRIC_NAMES = ('loss', 'mean_reward', 'terminal_rate', 'mean_value')
@@ -53,12 +69,21 @@ def _same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
   return total // 2, total - total // 2
 
 
+def _full_f32():
+  """cuDNN on with its convolutions in full float32 (no TF32). The
+  caller's `torch.backends.cudnn.deterministic` holds inside, which
+  `cudnn.flags` would otherwise turn off."""
+  return torch.backends.cudnn.flags(
+      enabled=True, deterministic=torch.backends.cudnn.deterministic,
+      allow_tf32=False)
+
+
 def conv_encode(convs: Sequence[nn.Conv2d], image: torch.Tensor,
                 activation) -> torch.Tensor:
   """(B, H, W, C) NHWC frames through 3x3 stride-2 'SAME' convolutions,
   each followed by `activation`, flattened in NHWC order."""
   x = image.permute(0, 3, 1, 2)
-  with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+  with _full_f32():
     for conv in convs:
       ph = _same_padding(x.shape[-2], 3, 2)
       pw = _same_padding(x.shape[-1], 3, 2)
@@ -307,6 +332,13 @@ class TrainCarry:
   env_state: Any
   ts: Any
   gen: torch.Generator
+  # The generator every rank shares (the permutations); `gen` itself
+  # without a mesh or at one rank.
+  shared_gen: Optional[torch.Generator] = None
+
+  @property
+  def perm_gen(self) -> torch.Generator:
+    return self.gen if self.shared_gen is None else self.shared_gen
 
 
 def _obs_spec_model(env, config: PPOConfig) -> ActorCritic:
@@ -377,13 +409,16 @@ class PPOTrainer:
   and returns each metric as a (num_updates,) tensor on the device.
   """
 
-  def __init__(self, env, config: PPOConfig = PPOConfig()):
+  def __init__(self, env, config: PPOConfig = PPOConfig(), mesh=None):
     self.env = env
     self.config = config
+    self.mesh = mesh
     self.device = env.device
     self.batch = env.batch_size
+    self.ranks = 1 if mesh is None else mesh.shape['data']
+    self.rank = 0 if mesh is None else mesh.rank
     self.n = config.rollout_length * self.batch
-    self.mb_size = self.n // config.num_minibatches
+    self.mb_size = self.n * self.ranks // config.num_minibatches
     self.shaping = (config.reward_shaping_coef
                     / constants.CARBON_BOND_DISTANCE_ANGSTROMS)
     if hasattr(env, 'shaping_distance'):
@@ -397,20 +432,26 @@ class PPOTrainer:
     if not isinstance(seed, torch.Generator):
       gen = torch.Generator(device=self.device)
       gen.manual_seed(int(seed))
+    shared = None
+    if self.ranks > 1:
+      if isinstance(seed, torch.Generator):
+        raise ValueError('A data-parallel run takes an int seed')
+      shared = gen
+      gen = torch.Generator(device=self.device)
+      gen.manual_seed(mesh_lib.process_data_seed(int(seed)))
     model = _obs_spec_model(self.env, self.config).to(self.device)
-    flax_init_(model, gen)
+    flax_init_(model, gen if shared is None else shared)
     if init_params is not None:
       load_actor_critic_params_(model, init_params)
     env_state, ts = self.env.reset(gen)
     return TrainCarry(model, make_optimizer(model, self.config.learning_rate),
-                      env_state, ts, gen)
+                      env_state, ts, gen, shared)
 
   def rollout(self, carry: TrainCarry, noise=None):
     model, gen, env = carry.model, carry.gen, self.env
     state, ts = carry.env_state, carry.ts
     steps = []
-    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
-                                                     allow_tf32=False):
+    with torch.no_grad(), _full_f32():
       for t in range(self.config.rollout_length):
         mean, log_std, value = model(ts.observation)
         eps = (noise[t] if noise is not None else torch.randn(
@@ -452,53 +493,86 @@ class PPOTrainer:
       next_value = traj['value'][t]
     return adv
 
-  def _loss(self, model, mb):
-    config = self.config
+  def _loss(self, model, mb, pos=None):
+    """This rank's share of the minibatch loss: the loss of the samples it
+    holds (at `pos` in the global minibatch; all of it when pos is None)
+    over the global minibatch size, the advantages normalised over the
+    whole minibatch, and the entropy bonus on rank 0 alone. The shares sum
+    over the ranks to the single-device loss."""
+    config, total = self.config, self.mb_size
     mean, log_std, value = model(mb['obs'])
     logprob = _gaussian_logprob(mean, log_std, mb['action'])
     ratio = torch.exp(logprob - mb['logprob'])
     adv = mb['advantage']
+    if pos is not None:
+      adv = torch.zeros((total,), device=self.device).index_copy_(0, pos, adv)
+      mesh_lib.all_reduce_(adv, self.mesh)
     adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    if pos is not None:
+      adv = adv[pos]
     unclipped = ratio * adv
     clipped = torch.clamp(ratio, 1 - config.clip_epsilon,
                           1 + config.clip_epsilon) * adv
-    policy_loss = -torch.mean(torch.minimum(unclipped, clipped))
-    value_loss = 0.5 * torch.mean(torch.square(value - mb['return']))
-    return (policy_loss + config.value_coef * value_loss
-            - config.entropy_coef * _gaussian_entropy(log_std))
+    policy_loss = -(torch.sum(torch.minimum(unclipped, clipped)) / total)
+    value_loss = 0.5 * (torch.sum(torch.square(value - mb['return'])) / total)
+    loss = policy_loss + config.value_coef * value_loss
+    if self.rank == 0:
+      loss = loss - config.entropy_coef * _gaussian_entropy(log_std)
+    return loss
 
   def learn(self, carry: TrainCarry, traj, last_value, perms=None):
-    config, n, mb_size = self.config, self.n, self.mb_size
+    """The update on the rollout; over a mesh, on the global rollout (see
+    the module docstring)."""
+    config, mb_size, batch = self.config, self.mb_size, self.batch
+    global_batch = batch * self.ranks
     adv = self._advantages(traj, last_value)
-    flat = {k: _flatten(traj[k], n) for k in ('obs', 'action', 'logprob')}
-    flat['advantage'] = adv.reshape(n)
-    flat['return'] = (adv + traj['value']).reshape(n)
+    flat = {k: _flatten(traj[k], self.n) for k in ('obs', 'action',
+                                                   'logprob')}
+    flat['advantage'] = adv.reshape(self.n)
+    flat['return'] = (adv + traj['value']).reshape(self.n)
     model, optimizer = carry.model, carry.optimizer
     params = list(model.parameters())
     epoch_losses = []
     # The backward's convolutions too run in full float32.
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+    with _full_f32():
       for e in range(config.num_epochs):
-        perm = (perms[e] if perms is not None else torch.randperm(
-            n, generator=carry.gen, device=self.device))
+        perm = (perms[e].to(self.device) if perms is not None else
+                torch.randperm(self.n * self.ranks, generator=carry.perm_gen,
+                               device=self.device))
         idx = perm[: mb_size * config.num_minibatches].reshape(
             config.num_minibatches, mb_size)
+        if self.ranks > 1:
+          # Global flat index t * B + b -> (rank b // B_r,
+          # row t * B_r + b % B_r).
+          env_index = idx % global_batch
+          mine = env_index // batch == self.rank
+          local = (idx // global_batch) * batch + env_index % batch
         losses = []
         for i in range(config.num_minibatches):
-          loss = self._loss(model,
-                            {k: _take(v, idx[i]) for k, v in flat.items()})
+          rows, pos = idx[i], None
+          if self.ranks > 1:
+            pos = torch.nonzero(mine[i]).squeeze(1)
+            rows = local[i][pos]
+          loss = self._loss(model, {k: _take(v, rows)
+                                    for k, v in flat.items()}, pos)
           optimizer.zero_grad(set_to_none=True)
           loss.backward()
+          # A rank that holds none of a minibatch still joins the sum.
+          for p in params:
+            if p.grad is None:
+              p.grad = torch.zeros_like(p)
+          mesh_lib.all_reduce_grads_(params, self.mesh)
           clip_by_global_norm_(params, config.max_grad_norm)
           optimizer.step()
           losses.append(loss.detach())
         epoch_losses.append(torch.stack(losses).mean())
-    return {
-        'loss': torch.stack(epoch_losses).mean(),
-        'mean_reward': traj['reward'].mean(),
-        'terminal_rate': (traj['discount'] == 0.0).to(torch.float32).mean(),
-        'mean_value': traj['value'].mean(),
-    }
+    stats = torch.stack([
+        torch.stack(epoch_losses).mean() * self.ranks,
+        traj['reward'].mean(),
+        (traj['discount'] == 0.0).to(torch.float32).mean(),
+        traj['value'].mean()])
+    stats = mesh_lib.all_reduce_(stats, self.mesh) / self.ranks
+    return dict(zip(METRIC_NAMES, stats.unbind()))
 
   def run_updates(self, carry: TrainCarry, num_updates: int, noise=None,
                   perms=None):
@@ -511,17 +585,17 @@ class PPOTrainer:
     return carry, {k: torch.stack([r[k] for r in rows]) for k in METRIC_NAMES}
 
 
-def make_train_fns(env, config: PPOConfig = PPOConfig()):
+def make_train_fns(env, config: PPOConfig = PPOConfig(), mesh=None):
   """(init_carry, run_updates) of a PPOTrainer on `env`, for chunked
-  training (see PPOTrainer)."""
-  trainer = PPOTrainer(env, config)
+  training (see PPOTrainer); with `mesh`, `env` is this rank's share."""
+  trainer = PPOTrainer(env, config, mesh)
   return trainer.init_carry, trainer.run_updates
 
 
-def make_train(env, config: PPOConfig = PPOConfig()):
+def make_train(env, config: PPOConfig = PPOConfig(), mesh=None):
   """Returns train(seed, init_params=None) -> (model, metrics): the whole
   run of `config.num_updates` updates in one call."""
-  init_carry, run_updates = make_train_fns(env, config)
+  init_carry, run_updates = make_train_fns(env, config, mesh)
 
   def train(seed, init_params=None):
     carry, metrics = run_updates(init_carry(seed, init_params),
@@ -570,9 +644,12 @@ def train_and_save(
     max_wall_seconds: Optional[float] = None,
     log_every_chunk: bool = False,
     init_params_from: Optional[str] = None,
+    mesh=None,
 ):
   """Trains PPO on `env` (on its device) and saves the policy checkpoint
   (`eval_agent.save_policy`); returns (policy module, metrics as numpy).
+  With `mesh` the run is data-parallel (`env` is this rank's share) and
+  rank 0 alone writes the checkpoint.
 
   With updates_per_chunk set, training runs in chunks of that many
   updates, saving a rolling checkpoint to save_dir after each and stopping
@@ -597,8 +674,9 @@ def train_and_save(
     init_params = eval_agent.read_flax_params(
         os.path.join(init_params_from, 'policy.ckpt'))
 
-  init_carry, run_updates = make_train_fns(env, config)
+  init_carry, run_updates = make_train_fns(env, config, mesh)
   carry = init_carry(seed, init_params)
+  writer = mesh is None or mesh.rank == 0
   chunk = updates_per_chunk or config.num_updates
   chunks = []
   done = 0
@@ -610,13 +688,44 @@ def train_and_save(
     chunks.append({k: v.cpu().numpy() for k, v in metrics.items()})
     done += count
     policy = as_policy(carry.model, env, config)
-    eval_agent.save_policy(policy, save_dir)
+    if writer:
+      eval_agent.save_policy(policy, save_dir)
     elapsed = time.monotonic() - t0
-    if log_every_chunk:
+    if log_every_chunk and writer:
       print(f"ppo: {done}/{config.num_updates} updates, {elapsed:.0f}s, "
             f"loss={chunks[-1]['loss'][-1]:.4f} terminal_rate="
             f"{float(np.mean(chunks[-1]['terminal_rate'])):.4f}", flush=True)
-    if max_wall_seconds is not None and elapsed > max_wall_seconds:
+    if max_wall_seconds is not None and mesh_lib.any_rank(
+        elapsed > max_wall_seconds, mesh):
       break
   metrics = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
   return policy, metrics
+
+
+def dryrun_mesh_training_step(mesh) -> dict:
+  """Two data-parallel PPO updates of a tiny env on each rank of `mesh`;
+  checks that the parameters stayed replicated (equal on every rank) and
+  the loss finite, and returns {'loss', 'spread'} (spread: the largest
+  parameter difference between ranks)."""
+  from putting_dune_torch import lattice as lattice_lib
+  from putting_dune_torch.env import env as env_lib
+
+  env = env_lib.PuttingDuneEnv(
+      lattice=lattice_lib.make_lattice(10, mesh.device), batch_size=4,
+      device=mesh.device)
+  config = PPOConfig(num_updates=2, rollout_length=4, num_minibatches=2,
+                     num_epochs=1, hidden=(16,))
+  init_carry, run_updates = make_train_fns(env, config, mesh)
+  carry, metrics = run_updates(init_carry(0), 2)
+  flat = torch.cat([p.detach().reshape(-1)
+                    for p in carry.model.parameters()])
+  ops = torch.distributed.ReduceOp
+  spread = (mesh_lib.all_reduce_(flat.clone(), mesh, ops.MAX)
+            - mesh_lib.all_reduce_(flat.clone(), mesh, ops.MIN))
+  out = {'loss': float(metrics['loss'][-1]),
+         'spread': float(spread.abs().max())}
+  if not math.isfinite(out['loss']):
+    raise RuntimeError('PPO mesh step loss not finite')
+  if out['spread'] != 0.0:
+    raise RuntimeError(f'PPO params differ across ranks by {out["spread"]}')
+  return out

@@ -20,7 +20,9 @@ reads (`params.msgpack`) and the `arch.json` sidecar; `load_params` reads
   python -m putting_dune_torch.atom_detection.train --workdir=runs/det \
       --epochs=1 --steps_per_epoch=2 --eval_steps=1 [--device=cpu]
 
-Not ported: `mesh=` (the multi-GPU slice).
+`train(config, mesh=)` trains data-parallel over the mesh's ranks
+(utils/training.py); the CLI's --coordinator_address, --num_processes and
+--process_id (or torchrun's environment) form the world.
 """
 
 from __future__ import annotations
@@ -92,14 +94,15 @@ def loss_and_accuracy(model, batch, class_weights=None):
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                class_weights: Optional[tuple] = None,
-               allow_tf32: bool = False):
-  """One AdamW step in place; returns (state, {'loss', 'accuracy'}). The
-  gradients stay in the parameters' `.grad`."""
+               allow_tf32: bool = False, mesh=None):
+  """One AdamW step in place (gradients averaged over the mesh's ranks);
+  returns (state, {'loss', 'accuracy'}). The gradients stay in the
+  parameters' `.grad`."""
   with training.precision(allow_tf32):
     loss, accuracy = loss_and_accuracy(state.model, batch, class_weights)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
-  training.apply_gradients(state)
+  training.apply_gradients(state, mesh)
   return state, {'loss': loss.detach(), 'accuracy': accuracy}
 
 
@@ -134,13 +137,14 @@ def _summarize(train_metrics, eval_metrics) -> dict:
   return summary
 
 
-def train(config: Config, *, device=None, progress=None,
+def train(config: Config, *, device=None, mesh=None, progress=None,
           stop_fn=None) -> TrainState:
   """Runs the training loop with best-checkpoint retention (see
   `utils/training.run_epochs`); `progress(epoch, summary)` after each
-  epoch, `stop_fn()` true before an epoch stops the run."""
+  epoch, `stop_fn()` true before an epoch stops the run. With `mesh`
+  (a 'data' axis) on the mesh's device, data-parallel."""
   training.check_config(config)
-  device = device_lib.resolve_device(device)
+  device = device_lib.resolve_device(device if mesh is None else mesh.device)
   state = create_state(config, device)
   if config.init_params_from:
     warm = load_params(config.init_params_from)
@@ -149,7 +153,8 @@ def train(config: Config, *, device=None, progress=None,
   def synthetic(seed, train):
     return data_lib.dataset_iterator(
         seed, noisy_fraction=config.noisy_fraction if train else None,
-        batch_size=config.batch_size, image_size=config.image_size,
+        batch_size=training.local_batch_size(config),
+        image_size=config.image_size,
         grid_columns=config.grid_columns, noisy=config.noisy_images,
         device=device)
 
@@ -157,8 +162,8 @@ def train(config: Config, *, device=None, progress=None,
                                                 synthetic)
   return training.run_epochs(
       config, state, best_fn, train_iter, eval_iter,
-      lambda s, b: train_step(s, b, config.class_weights)[1],
-      eval_step, _summarize, progress=progress, stop_fn=stop_fn)
+      lambda s, b: train_step(s, b, config.class_weights, mesh=mesh)[1],
+      eval_step, _summarize, progress=progress, stop_fn=stop_fn, mesh=mesh)
 
 
 def save_params_msgpack(params, workdir: str,

@@ -8,7 +8,8 @@ out host timesteps (numpy observations, Python floats):
   * `reset()` gives a FIRST timestep, which carries no reward or discount;
   * `step(action)` on a fresh environment, or after a LAST timestep, is a
     reset (the action is ignored);
-  * `seed(seed)` reseeds the wrapper's generator and asks for a reset.
+  * `seed(seed)` reseeds the wrapper's generator and asks for a reset;
+  * `render()` draws the current state (plotting_utils.render_env_frame).
 
 Use the batched environment for throughput; this wrapper serves the host
 agents, the host evaluator (`eval_lib.evaluate`) and contract tests.
@@ -187,6 +188,15 @@ class DmEnvWrapper:
 
   def discount_spec(self) -> BoundedArray:
     return BoundedArray((), np.float64, minimum=0.0, maximum=1.0)
+
+  def render(self) -> np.ndarray:
+    """The current state as a (500, 500, 3) uint8 frame
+    (plotting_utils.render_env_frame)."""
+    from putting_dune_torch import plotting_utils
+
+    if self._state is None:
+      raise RuntimeError('render() before reset()')
+    return plotting_utils.render_env_frame(self._env, self._state)
 
   def close(self) -> None:
     pass

@@ -26,10 +26,13 @@ acting on each timestep (`eval_lib.evaluate`; the multi-dopant
 experiments always run batched, as in the JAX package). --seed seeds the
 host agent's numpy
 generator and the wrapper; --output_json writes {experiment, suite,
-aggregate, results} with NaN as null. --mesh (data-parallel evaluation)
-is not ported: a non-empty value raises. --video_save_dir parses as in the
-JAX package; episode videos are not ported, so both evaluators raise
-NotImplementedError when it is set.
+aggregate, results} with NaN as null. --video_save_dir writes `{seed}.gif`
+episode videos from either evaluator (the first 4 envs of a batch, every
+seed of the host loop). --mesh=data or data:N evaluates data-parallel
+over N ranks, one a device (parallel/mesh.py): from a plain `python -m`
+the CLI launches the ranks itself, under torchrun it uses the world it
+finds; each rank runs its contiguous block of the suite and rank 0 prints
+the report over every seed.
 """
 
 from __future__ import annotations
@@ -85,23 +88,43 @@ def _multi_dopant_env_and_policy(args: Args, batch_size: int, device):
       action_dim=spec.shape[0])
 
 
-def main(args: Args) -> dict:
-  """Runs one eval; returns {'aggregate', 'results', 'env_steps', ...}."""
+def main(args: Args) -> Optional[dict]:
+  """Runs one eval; returns {'aggregate', 'results', 'env_steps', ...}
+  (None in the process that launched the ranks of a --mesh=data:N run,
+  which run `args` as their command line, `rank_argv(args)`)."""
+  from putting_dune_torch.parallel import mesh as mesh_lib
+
+  if args.mesh and not args.batched:
+    raise ValueError('--mesh requires batched evaluation (drop --no-batched).')
+  return mesh_lib.run_cli(args.mesh, args.device,
+                          lambda mesh: _main(args, mesh),
+                          'putting_dune_torch.eval', rank_argv(args))
+
+
+def rank_argv(args: Args) -> list:
+  """The command line that parses back to `args`: a flag a field."""
+  argv = []
+  for field in dataclasses.fields(Args):
+    value = getattr(args, field.name)
+    if field.name == 'batched':
+      argv.append('--batched' if value else '--no-batched')
+    elif value is not None:
+      argv.append(f'--{field.name}={value}')
+  return argv
+
+
+def _main(args: Args, mesh) -> dict:
   from putting_dune_torch import device as device_lib
   from putting_dune_torch import eval_lib
   from putting_dune_torch import registry
   from putting_dune_torch import run_helpers
 
-  if args.mesh and not args.batched:
-    raise ValueError('--mesh requires batched evaluation (drop --no-batched).')
-  if args.mesh:
-    raise NotImplementedError(
-        f'--mesh={args.mesh!r}: putting_dune_torch evaluates on one device; '
-        'the data-parallel mesh is not ported yet. Leave --mesh empty.')
-  device = device_lib.resolve_device(args.device)
+  device = (device_lib.resolve_device(args.device) if mesh is None
+            else mesh.device)
   seeds = eval_lib.EVAL_SUITES[args.eval_suite]
+  batch = len(seeds) // (1 if mesh is None else mesh.shape['data'])
   if args.experiment_name in registry.multi_dopant_experiment_names():
-    env, policy = _multi_dopant_env_and_policy(args, len(seeds), device)
+    env, policy = _multi_dopant_env_and_policy(args, batch, device)
   elif not args.batched:
     return _report(args, device, *_evaluate_host(args, seeds, device))
   else:
@@ -111,12 +134,13 @@ def main(args: Args) -> dict:
         experiment.get_policy(adapters_and_goal, device))
     env = run_helpers.create_batched_env(
         experiment.get_adapters_and_goal, experiment.get_simulator_config,
-        batch_size=len(seeds), step_limit=args.step_limit,
+        batch_size=batch, step_limit=args.step_limit,
         image_size=args.image_size, device=device,
     )
   t0 = time.perf_counter()
   results = eval_lib.evaluate_batched(env, policy, seeds,
-                                      video_save_dir=args.video_save_dir)
+                                      video_save_dir=args.video_save_dir,
+                                      mesh=mesh)
   _synchronize(device)
   seconds = time.perf_counter() - t0
   env_steps = len(seeds) * max(r.num_actions_taken for r in results)
@@ -159,8 +183,10 @@ def _report(args: Args, device, results, env_steps, seconds) -> dict:
   keys, NaN as null)."""
   from putting_dune_torch import eval_lib
 
+  from putting_dune_torch.parallel import mesh as mesh_lib
+
   aggregate = dataclasses.asdict(eval_lib.aggregate_results(results))
-  if args.output_json:
+  if args.output_json and mesh_lib.world()[0] == 0:
     payload = _json_safe({
         'experiment': args.experiment_name,
         'suite': args.eval_suite,
@@ -208,18 +234,21 @@ def _parse_args(argv=None) -> Args:
   parser.add_argument('--nobatched', dest='batched', action='store_false',
                       help='Same as --no-batched.')
   parser.add_argument('--video_save_dir', default=None,
-                      help='Episode videos; not ported, any value raises.')
+                      help='Write {seed}.gif episode videos here.')
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--output_json', default=None)
   parser.add_argument('--mesh', default='',
-                      help='Accepted only so that JAX command lines parse: '
-                      'any value raises (with --no-batched as in JAX; the '
-                      'data-parallel mesh is not ported).')
+                      help="Data-parallel ranks: 'data' (every device) or "
+                      "'data:N'; empty is the single-device program.")
   return Args(**vars(parser.parse_args(argv)))
 
 
 def cli(argv=None) -> None:
+  from putting_dune_torch.parallel import mesh as mesh_lib
+
   report = main(_parse_args(argv))
+  if report is None or mesh_lib.world()[0] != 0:
+    return
   report.pop('results')
   print(json.dumps(_json_safe(report)))
 

@@ -11,6 +11,19 @@ state the loop carries on the device.
 (env/dm_env_wrapper.py) and a host agent's `step`: each episode's budget
 counts simulated seconds plus the agent's own wall seconds, as the JAX
 package's host evaluator does.
+
+Both write episode videos, `{seed}.gif`, into `video_save_dir`
+(plotting_utils draws the frames, io/gif.py writes them). The batched
+loop records only (si, offset, theta, goal) of the first `video_envs` envs
+each step, on the device, and rebuilds the atom clouds on the host after
+the episode: within an episode the lattice pose is frozen, so that is
+the whole scene. Recording draws nothing, so a run with videos gives the
+results of the same run without them.
+
+With a `mesh` (parallel/mesh.py, one rank per device) `evaluate_batched`
+splits the seeds over the ranks in contiguous blocks; each rank's env
+holds its block, seeded from that block (at world 1 the unsharded
+run's stream), and the results come back in seed order on every rank.
 """
 
 from __future__ import annotations
@@ -130,6 +143,8 @@ def evaluate_batched(
     *,
     timeout_seconds: float = DEFAULT_TIMEOUT_SECONDS,
     video_save_dir: Optional[str] = None,
+    video_envs: int = 4,
+    mesh=None,
 ) -> List[EvalResult]:
   """Evaluates a batched policy over one batch of environments.
 
@@ -142,15 +157,24 @@ def evaluate_batched(
     timeout_seconds: combined per-episode budget (simulated seconds plus
       the batch-shared wall clock since the rollout started); the step
       cap is env.config.step_limit or env.step_limit (600 if neither).
-    video_save_dir: episode videos; not ported, so any value raises
-      NotImplementedError.
+    video_save_dir: if set, `{seed}.gif` for each of the first
+      `video_envs` environments, min(steps + 1, step cap + 1) frames.
+    video_envs: how many leading environments to record.
+    mesh: a parallel.mesh.Mesh with a 'data' axis: `seeds` is the whole
+      suite and env.batch_size this rank's block of it. Not with videos.
 
   Returns:
     One EvalResult per seed, in order.
   """
-  if video_save_dir is not None:
-    raise NotImplementedError(
-        'video_save_dir: episode videos wait for the port of plotting_utils.')
+  if mesh is not None and video_save_dir:
+    raise ValueError(
+        'mesh-sharded evaluation does not support video capture; run the '
+        'video pass unsharded.')
+  all_seeds = list(seeds)
+  if mesh is not None:
+    from putting_dune_torch.parallel import mesh as mesh_lib
+
+    seeds = mesh_lib.local_block(all_seeds, mesh)
   if env.batch_size != len(seeds):
     raise ValueError(
         f'env.batch_size={env.batch_size} != len(seeds)={len(seeds)}')
@@ -171,9 +195,11 @@ def evaluate_batched(
     reward = torch.zeros((batch,), device=device)
     kmc_truncations = 0
     pstate, policy_step = policy_stepper(policy, ts.observation)
+    nvid = min(video_envs, batch) if video_save_dir else 0
+    recorder = _PoseRecorder(state, nvid, max_steps + 1) if nvid else None
 
     t_start = time.perf_counter()
-    for _ in range(max_steps):
+    for t in range(max_steps):
       wall = time.perf_counter() - t_start
       if wall >= timeout_seconds:
         break
@@ -192,6 +218,8 @@ def evaluate_batched(
       done = done | (env_seconds + wall > timeout_seconds)
       kmc_truncations = kmc_truncations + torch.sum(
           live & (state.kmc_truncation_count > prev_trunc))
+      if recorder is not None:
+        recorder.record(t + 1, state)
       if bool(done.all()):
         break
 
@@ -205,7 +233,9 @@ def evaluate_batched(
   steps_l = steps.tolist()
   secs_l = env_seconds.tolist()
   reward_l = reward.tolist()
-  return [
+  if recorder is not None:
+    save_batched_videos(env, seeds, steps_l, recorder.host(), video_save_dir)
+  results = [
       EvalResult(
           seed=int(seed),
           reached_goal=bool(reached_l[i]),
@@ -218,6 +248,90 @@ def evaluate_batched(
       )
       for i, seed in enumerate(seeds)
   ]
+  if mesh is not None:
+    results = mesh_lib.gather_blocks(results, mesh)
+  return results
+
+
+def video_pose(state, count: int):
+  """(si (n, D), offset (n, 2), theta (n,), goals (n, D, 2)) of the first
+  `count` envs; the single-dopant env is the D = 1 case."""
+  if hasattr(state, 'sim'):
+    material = state.sim.material
+    return (material.si_index[:count, None], material.offset[:count],
+            material.theta[:count],
+            state.goal.position_material[:count, None, :])
+  return (state.si_indices[:count], state.offset[:count],
+          state.theta[:count], state.goals[:count])
+
+
+class _PoseRecorder:
+  """(cap, nvid, ...) buffers on the env's device; row t holds the poses
+  after t steps. Writing a row reads the state and draws nothing."""
+
+  def __init__(self, state, nvid: int, cap: int):
+    self.nvid = nvid
+    pose = video_pose(state, nvid)
+    self.buffers = [torch.zeros((cap,) + tuple(x.shape), dtype=x.dtype,
+                                device=x.device) for x in pose]
+    self.record(0, state)
+
+  def record(self, t: int, state) -> None:
+    for buf, x in zip(self.buffers, video_pose(state, self.nvid)):
+      buf[t].copy_(x)
+
+  def host(self) -> dict:
+    si, offset, theta, goal = (b.cpu().numpy() for b in self.buffers)
+    return dict(si=si, offset=offset, theta=theta, goal=goal)
+
+
+def video_scenes(lattice, video, i: int, count: int):
+  """The first `count` recorded scenes of env i: (positions (count, N, 2),
+  atomic numbers (count, N), goals (D, 2)), rebuilt on the host from the
+  recorded poses (the JAX package's `_save_batched_videos`)."""
+  from putting_dune_torch import lattice as lattice_lib
+  from putting_dune_torch import plotting_utils
+
+  host = lattice_lib.Lattice(lattice.positions.cpu(), lattice.neighbors.cpu())
+  positions, numbers = plotting_utils.material_scene(
+      host, video['offset'][:count, i], video['theta'][:count, i],
+      video['si'][:count, i])
+  return positions, numbers, np.asarray(video['goal'][0, i])
+
+
+def save_batched_videos(env, seeds, steps, video, save_dir: str
+                        ) -> List[str]:
+  """Writes `{seed}.gif` for each recorded env: min(steps + 1, cap)
+  frames. Returns the paths."""
+  import os
+
+  from putting_dune_torch import plotting_utils
+
+  os.makedirs(save_dir, exist_ok=True)
+  cap = video['si'].shape[0]
+  paths = []
+  for i in range(video['si'].shape[1]):
+    count = min(int(steps[i]) + 1, cap)
+    positions, numbers, goal = video_scenes(env.lattice, video, i, count)
+    clip = plotting_utils.generate_video_from_trajectory(
+        positions, numbers, goal_position=goal)
+    path = os.path.join(save_dir, f'{int(seeds[i])}.gif')
+    clip.save(path)
+    paths.append(path)
+  return paths
+
+
+def _snapshot_frame(env):
+  """(positions, atomic numbers, goal) of the wrapper's current state."""
+  from putting_dune_torch import plotting_utils
+
+  state = env._state  # pylint: disable=protected-access
+  material = state.sim.material
+  world, numbers = plotting_utils.material_scene(
+      env.env.lattice, material.offset[0], material.theta[0],
+      material.si_index[0])
+  goal = state.goal.position_material[0].cpu().numpy()
+  return world, numbers, goal
 
 
 def evaluate(
@@ -233,10 +347,11 @@ def evaluate(
   `env` is the single-env wrapper (`run_helpers.create_putting_dune_env`);
   `agent` has the dm_env `step`. An episode ends at its LAST timestep or
   once its simulated seconds plus the agent's wall seconds reach `timeout`.
+  With `video_save_dir`, every step is snapshotted and the episode written
+  as `{seed}.gif`.
   """
-  if video_save_dir is not None:
-    raise NotImplementedError(
-        'video_save_dir: episode videos wait for the port of plotting_utils.')
+  import os
+
   agent.set_mode(agent_lib.AgentMode.EVAL)
   results = []
   for seed in seeds:
@@ -246,6 +361,9 @@ def evaluate(
     env_elapsed = float(env.last_elapsed_seconds)
     num_actions = 0
     total_reward = 0.0
+    frames = []
+    if video_save_dir is not None:
+      frames.append(_snapshot_frame(env))
     while agent_elapsed + env_elapsed < timeout.total_seconds():
       t0 = time.perf_counter()
       action = agent.step(time_step)
@@ -255,8 +373,18 @@ def evaluate(
       num_actions += 1
       if time_step.reward is not None:
         total_reward += float(time_step.reward)
+      if video_save_dir is not None:
+        frames.append(_snapshot_frame(env))
       if time_step.last():
         break
+    if frames:
+      from putting_dune_torch import plotting_utils
+
+      os.makedirs(video_save_dir, exist_ok=True)
+      plotting_utils.generate_video_from_trajectory(
+          [f[0] for f in frames], [f[1] for f in frames],
+          goal_position=frames[0][2]).save(
+              os.path.join(video_save_dir, f'{seed}.gif'))
     discount = 1.0 if time_step.discount is None else float(time_step.discount)
     reached_goal = bool(time_step.last() and discount == 0.0)
     results.append(EvalResult(

@@ -13,7 +13,9 @@ with data_source='records:<dir>' from a written dataset (eval on its
   python -m putting_dune_torch.graph_alignment.train --workdir=runs/gnn \
       --epochs=1 --steps_per_epoch=2 --eval_steps=1 [--device=cpu]
 
-Not ported: `mesh=` (the multi-GPU slice).
+`train(config, mesh=)` trains data-parallel over the mesh's ranks
+(utils/training.py); the CLI's --coordinator_address, --num_processes and
+--process_id (or torchrun's environment) form the world.
 """
 
 from __future__ import annotations
@@ -73,13 +75,15 @@ def _loss(model, batch, local_loss_weight: float):
   return total, {'loss': total.detach(), 'drift_error': drift_error}
 
 
-def train_step(state: TrainState, batch, local_loss_weight: float = 0.0):
-  """One AdamW step in place; returns (state, {'loss', 'drift_error'})."""
+def train_step(state: TrainState, batch, local_loss_weight: float = 0.0,
+               mesh=None):
+  """One AdamW step in place (gradients averaged over the mesh's ranks);
+  returns (state, {'loss', 'drift_error'})."""
   with training.precision():
     total, metrics = _loss(state.model, batch, local_loss_weight)
     state.optimizer.zero_grad(set_to_none=True)
     total.backward()
-  training.apply_gradients(state)
+  training.apply_gradients(state, mesh)
   return state, metrics
 
 
@@ -110,14 +114,15 @@ def _summarize(train_metrics, eval_metrics) -> dict:
   return training.last_metrics(train_metrics)
 
 
-def train(config: Config, *, device=None, progress=None,
+def train(config: Config, *, device=None, mesh=None, progress=None,
           stop_fn=None) -> TrainState:
   """Runs the training loop with best-checkpoint retention (see
-  `utils/training.run_epochs`)."""
+  `utils/training.run_epochs`); with `mesh`, data-parallel."""
   training.check_config(config)
-  device = device_lib.resolve_device(device)
+  device = device_lib.resolve_device(device if mesh is None else mesh.device)
   state = create_state(config, device)
-  stream = dict(batch_size=config.batch_size, num_frames=config.num_frames,
+  stream = dict(batch_size=training.local_batch_size(config),
+                num_frames=config.num_frames,
                 capacity=config.capacity, grid_columns=config.grid_columns,
                 device=device)
   train_iter, eval_iter = training.data_streams(
@@ -125,8 +130,8 @@ def train(config: Config, *, device=None, progress=None,
       lambda seed, train: data_lib.dataset_iterator(seed, **stream))
   return training.run_epochs(
       config, state, best_fn, train_iter, eval_iter,
-      lambda s, b: train_step(s, b, config.local_loss_weight)[1],
-      eval_step, _summarize, progress=progress, stop_fn=stop_fn)
+      lambda s, b: train_step(s, b, config.local_loss_weight, mesh)[1],
+      eval_step, _summarize, progress=progress, stop_fn=stop_fn, mesh=mesh)
 
 
 def save_params_msgpack(params, workdir: str) -> str:

@@ -16,7 +16,9 @@ written dataset (eval on its `test/` split where it has one). The best checkpoin
   python -m putting_dune_torch.image_alignment.train --workdir=runs/align \
       --epochs=1 --steps_per_epoch=2 --eval_steps=1 [--device=cpu]
 
-Not ported: `mesh=` (the multi-GPU slice).
+`train(config, mesh=)` trains data-parallel over the mesh's ranks
+(utils/training.py); the CLI's --coordinator_address, --num_processes and
+--process_id (or torchrun's environment) form the world.
 """
 
 from __future__ import annotations
@@ -95,16 +97,18 @@ def _losses(model, batch, num_frames: int, final_step_only: bool):
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                drift_loss_weight: float, num_frames: int,
-               final_step_only: bool, ce_loss_weight: float = 1.0):
-  """One AdamW step in place; returns (state, {'loss', 'ce', 'accuracy',
-  'drift_loss', 'drift_error'})."""
+               final_step_only: bool, ce_loss_weight: float = 1.0,
+               mesh=None):
+  """One AdamW step in place (gradients averaged over the mesh's ranks);
+  returns (state, {'loss', 'ce', 'accuracy', 'drift_loss',
+  'drift_error'})."""
   with training.precision():
     ce, accuracy, drift_loss, drift_error = _losses(
         state.model, batch, num_frames, final_step_only)
     total = ce_loss_weight * ce + drift_loss_weight * drift_loss
     state.optimizer.zero_grad(set_to_none=True)
     total.backward()
-  training.apply_gradients(state)
+  training.apply_gradients(state, mesh)
   return state, {'loss': total.detach(), 'ce': ce.detach(),
                  'accuracy': accuracy, 'drift_loss': drift_loss.detach(),
                  'drift_error': drift_error}
@@ -143,18 +147,19 @@ def _summarize(train_metrics, eval_metrics) -> dict:
   return training.last_metrics(train_metrics)
 
 
-def train(config: Config, *, device=None, progress=None,
+def train(config: Config, *, device=None, mesh=None, progress=None,
           stop_fn=None) -> TrainState:
   """Runs the training loop with best-checkpoint retention (see
-  `utils/training.run_epochs`)."""
+  `utils/training.run_epochs`); with `mesh`, data-parallel."""
   training.check_config(config)
-  device = device_lib.resolve_device(device)
+  device = device_lib.resolve_device(device if mesh is None else mesh.device)
   state = create_state(config, device)
   if config.init_params_from:
     state.model.load_state_dict(
         model_lib.params_from_flax(load_params(config.init_params_from)))
   stream = dict(
-      batch_size=config.batch_size, image_size=config.image_size,
+      batch_size=training.local_batch_size(config),
+      image_size=config.image_size,
       num_frames=config.num_frames, grid_columns=config.grid_columns,
       registration_noise=config.registration_noise,
       inference_preprocessing=config.inference_preprocessing,
@@ -169,12 +174,12 @@ def train(config: Config, *, device=None, progress=None,
                                                 synthetic)
   step = lambda s, b: train_step(  # noqa: E731
       s, b, config.drift_loss_weight, config.num_frames,
-      config.final_step_only, config.ce_loss_weight)[1]
+      config.final_step_only, config.ce_loss_weight, mesh)[1]
   evaluate = lambda s, b: eval_step(  # noqa: E731
       s, b, config.num_frames, config.final_step_only)
   return training.run_epochs(
       config, state, best_fn, train_iter, eval_iter, step, evaluate,
-      _summarize, progress=progress, stop_fn=stop_fn)
+      _summarize, progress=progress, stop_fn=stop_fn, mesh=mesh)
 
 
 def save_params_msgpack(params, workdir: str,

@@ -1,12 +1,14 @@
-"""The port's host C++ record codec: built with g++ at first use.
+"""The port's host C++ codecs: built with g++ at first use.
 
-`native/tfrecord.cc` (TFRecord framing, CRC32C) and `native/riegeli_hash.cc`
+`native/tfrecord.cc` (TFRecord framing, CRC32C), `native/riegeli_hash.cc`
 (HighwayHash-64 over the vendored portable headers in
-`native/third_party/highwayhash`) build into one shared library in the
+`native/third_party/highwayhash`) and `native/gif_lzw.cc` (the GIF
+compressor of the episode videos) build into one shared library in the
 git-ignored `putting_dune_torch/_build/`, named by a hash of the sources,
 the headers and the flags like the CUDA kernels (`ops/_build.py`), and load
 through ctypes. A failed build raises: nothing falls back to the plain
-Python twins (`crc32c_py` here, `riegeli_native.highwayhash64_py`), which
+Python twins (`crc32c_py` here, `riegeli_native.highwayhash64_py`,
+`gif.lzw_encode_py`), which
 are the oracles the tests hold the library to and read at a few MB/s.
 Nothing here runs at import time.
 """
@@ -24,7 +26,7 @@ import threading
 _PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 NATIVE_DIR = _PKG_DIR / 'native'
 BUILD_DIR = _PKG_DIR / '_build'
-SOURCES = ('tfrecord.cc', 'riegeli_hash.cc')
+SOURCES = ('tfrecord.cc', 'riegeli_hash.cc', 'gif_lzw.cc')
 # -fno-strict-aliasing: hh_portable.h type-puns its u64 state as u32, which
 # -O2 and above miscompile into wrong digests without it.
 CXX_FLAGS = ('-O3', '-std=c++17', '-fPIC', '-fno-strict-aliasing', '-shared')
@@ -55,7 +57,7 @@ def build() -> pathlib.Path:
     return out
   cxx = os.environ.get('CXX') or shutil.which('g++') or shutil.which('c++')
   if cxx is None:
-    raise RuntimeError('No C++ compiler (g++) to build the record codec.')
+    raise RuntimeError('No C++ compiler (g++) to build the host codecs.')
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
   tmp = out.with_suffix(f'.{os.getpid()}.{threading.get_ident()}.tmp')
   cmd = [cxx, *CXX_FLAGS, f'-I{NATIVE_DIR / "third_party" / "highwayhash"}',
@@ -63,7 +65,7 @@ def build() -> pathlib.Path:
   run = subprocess.run(cmd, capture_output=True, text=True)
   if run.returncode != 0:
     raise RuntimeError(
-        f'Building the record codec failed ({" ".join(cmd)}):\n'
+        f'Building the host codecs failed ({" ".join(cmd)}):\n'
         f'{run.stdout}{run.stderr}')
   os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
   return out
@@ -87,6 +89,9 @@ def load() -> ctypes.CDLL:
       lib.pd_highwayhash64.argtypes = [
           ctypes.POINTER(c_u64 * 4), ctypes.c_char_p, c_u64]
       lib.pd_highwayhash64.restype = c_u64
+      lib.pd_gif_lzw_encode.argtypes = [
+          ctypes.c_char_p, c_u64, ctypes.c_int, ctypes.c_char_p, c_u64]
+      lib.pd_gif_lzw_encode.restype = ctypes.c_int64
       _lib = lib
     return _lib
 

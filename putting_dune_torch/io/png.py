@@ -1,4 +1,5 @@
-"""A PNG decoder of the port's own, in place of `cv2.imdecode`.
+"""A PNG codec of the port's own, in place of `cv2.imdecode` and
+matplotlib's `savefig`.
 
 Decodes what TFDS image features hold: non-interlaced PNG of 8- or 16-bit
 samples, grey (colour type 0), RGB (2) or RGBA (6); zlib-compressed IDAT
@@ -8,6 +9,10 @@ data unfiltered by the five row filters (None, Sub, Up, Average, Paeth).
 Every chunk's CRC is checked. Anything else raises ValueError: palette and
 grey-alpha images, bit depths below 8, interlacing, and any payload that is
 not a PNG (JPEG decoding is not ported: ROADMAP queue 1, IO).
+
+`imencode(rgb)` writes an 8-bit RGB (or grey) PNG through the standard
+library's zlib, every row with filter 0: what the port's plots are saved
+as.
 """
 
 from __future__ import annotations
@@ -118,3 +123,26 @@ def imdecode(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(pixels[..., 0])
   order = [2, 1, 0] + ([3] if channels == 4 else [])
   return np.ascontiguousarray(pixels[..., order])
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+  return (struct.pack('>I', len(body)) + kind + body
+          + struct.pack('>I', zlib.crc32(kind + body)))
+
+
+def imencode(pixels: np.ndarray) -> bytes:
+  """An (H, W, 3) RGB or (H, W) grey uint8 array as PNG bytes (the RGB
+  order PIL and matplotlib write; `imdecode` gives it back as BGR)."""
+  pixels = np.ascontiguousarray(pixels)
+  if pixels.dtype != np.uint8 or pixels.ndim not in (2, 3) or (
+      pixels.ndim == 3 and pixels.shape[2] != 3):
+    raise ValueError(f'imencode takes (H, W) or (H, W, 3) uint8, got '
+                     f'{pixels.shape} {pixels.dtype}')
+  height, width = pixels.shape[:2]
+  color = 0 if pixels.ndim == 2 else 2
+  rows = pixels.reshape(height, -1)
+  raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1)
+  header = struct.pack('>IIBBBBB', width, height, 8, color, 0, 0, 0)
+  return (SIGNATURE + _chunk(b'IHDR', header)
+          + _chunk(b'IDAT', zlib.compress(raw.tobytes(), 6))
+          + _chunk(b'IEND', b''))

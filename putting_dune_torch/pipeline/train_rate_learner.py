@@ -7,13 +7,14 @@ distill -> save) on the port's `rate_learning/`. The saved predictor is
 the flax checkpoint both packages read (`LearnedRatePredictor.save`).
 
   python -m putting_dune_torch.pipeline.train_rate_learner \
-      --source_path=trajectories.tfrecords --workdir=runs/rates \
-      --noplot_metrics --novisualize_rates [--device=cpu]
+      --source_path=trajectories.tfrecords --workdir=runs/rates [--device=cpu]
 
-The five sklearn learner types (ROADMAP queue 1, IO: the sklearn learners)
-and the matplotlib plots (`--plot_metrics`, `--visualize_rates`; ROADMAP
-queue 1, plotting_utils) are not ported: they raise NotImplementedError
-before any training.
+With the default flags it writes, as the JAX CLI does, `metrics.npz`, one
+`{k}.png` per metric (--plot_metrics) and `avg_context_rates.png`, the
+final predictor's rates over a 300^2 grid of beams at the median context
+(--visualize_rates), drawn by plotting_utils without matplotlib. The five
+sklearn learner types (ROADMAP queue 1, IO: the sklearn learners) are not
+ported: they raise NotImplementedError before any training.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 
 from putting_dune_torch import constants
 from putting_dune_torch import microscope_data as md
+from putting_dune_torch import plotting_utils
 from putting_dune_torch.io import records
 from putting_dune_torch.pipeline import trajectories_to_transitions as t2t
 from putting_dune_torch.rate_learning import config as config_lib
@@ -295,11 +297,6 @@ def check_args(args: Args) -> LearnerType:
         f'learner_type={args.learner_type!r}: the sklearn learners are not '
         'ported (ROADMAP queue 1, IO: the five sklearn learner types); use '
         "'rate_network' or 'classification_network'.")
-  if args.plot_metrics or args.visualize_rates:
-    raise NotImplementedError(
-        'plot_metrics / visualize_rates need matplotlib, which the port '
-        'does not use (ROADMAP queue 1, plotting_utils and video); pass '
-        '--noplot_metrics --novisualize_rates.')
   return learner_type
 
 
@@ -364,6 +361,8 @@ def main(args: Args):
   if args.log_metrics:
     np.savez_compressed(os.path.join(args.workdir, 'metrics.npz'),
                         **{k: np.asarray(v) for k, v in metrics.items()})
+  if args.plot_metrics:
+    plotting_utils.plot_metrics(metrics, args.workdir)
   if args.distill:
     dev = predictor.device
     augmented = data_utils.augment_data(
@@ -374,6 +373,13 @@ def main(args: Args):
         context=torch.as_tensor(stacked['context'], device=dev))
     predictor.distill(augmented)
   predictor.save(args.workdir)
+  if args.visualize_rates and datapoints:
+    context = stacked['context']
+    plotting_utils.visualize_rates(
+        os.path.join(args.workdir, 'avg_context_rates.png'),
+        lambda x: predictor.apply_model(x).cpu().numpy(), grid_range=10.0,
+        num_points=300**2,
+        fixed_context=np.median(context, axis=0) if context.size else None)
   return stacked, counts, predictor
 
 

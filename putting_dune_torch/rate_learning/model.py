@@ -191,14 +191,17 @@ class RateMLP(nn.Module):
 
   def select(self, model_index: int) -> 'RateMLP':
     """A one-model copy of ensemble member `model_index`."""
-    params, stats = self.flax_trees()
-    pick = lambda tree: {  # noqa: E731
-        k: {leaf: v[model_index:model_index + 1] for leaf, v in d.items()}
-        for k, d in tree.items()}
+    return self.models(model_index, model_index + 1)
+
+  def models(self, start: int, stop: int) -> 'RateMLP':
+    """A copy of ensemble members start .. stop - 1."""
     device = next(self.parameters()).device
-    single = RateMLP(1, self.in_features, self.hidden_dimensions,
-                     self.num_states, self.batchnorm, device=device)
-    return single.load_flax_trees(pick(params), pick(stats))
+    part = RateMLP(stop - start, self.in_features, self.hidden_dimensions,
+                   self.num_states, self.batchnorm, device=device)
+    with torch.no_grad():
+      for name, value in self.state_dict().items():
+        part.state_dict()[name].copy_(value[start:stop])
+    return part
 
 
 def get_mlp_fn(

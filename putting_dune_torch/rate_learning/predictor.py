@@ -140,15 +140,16 @@ class LearnedRatePredictor:
 
   def train(self, train_data: Mapping[str, np.ndarray],
             bootstrap: Optional[bool] = None,
-            epoch_chunk: Optional[int] = None, progress=None):
+            epoch_chunk: Optional[int] = None, progress=None, mesh=None):
     """Trains the bootstrap ensemble on `train_data` (host arrays or
     tensors: next_state, dt, rates, position, context). It starts from the
     ensemble the predictor holds, freshly initialised at construction (the
     JAX package draws a fresh one here, from the same law), or from a fresh
     one of config.num_models when the predictor holds another number of
     models (after `distill` or `load`) or another input width than the
-    data's. Returns the metrics
-    {name: (M, epochs)}."""
+    data's. With `mesh` (a 'model' axis) each rank trains its slice of
+    the ensemble and ends holding all of it (train.train_multiple_models).
+    Returns the metrics {name: (M, epochs)}."""
     if bootstrap is None:
       bootstrap = self.config.bootstrap
     host = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
@@ -168,7 +169,7 @@ class LearnedRatePredictor:
     self.model, _, metrics = train_lib.train_multiple_models(
         train_sets, test_sets, self.generator, self.config.num_models,
         self.config, epoch_chunk=epoch_chunk, progress=progress,
-        device=self.device, model=self.model)
+        device=self.device, model=self.model, mesh=mesh)
     self.model.eval()
     return metrics
 

@@ -6,7 +6,14 @@ the ensemble axis lives in every layer (model.RateMLP), so each step is one
 batched forward, backward and AdamW update for all M models, each on its
 own minibatch (its own permutation per epoch) with its own batch norm.
 Metrics stay on the device within a chunk of epochs; the host reads them
-once per chunk. The mesh-sharded ensemble is not ported.
+once per chunk.
+
+With a mesh whose 'model' axis has N ranks (parallel/mesh.py), rank r
+trains models r M/N .. (r+1) M/N - 1: every rank draws the full (M, ...)
+initialisation and per-epoch permutations from the shared generator and
+keeps its slice, no collective runs inside an epoch, and the metrics and
+parameters are all-gathered at the end of each chunk and of the run. An
+N-rank ensemble equals the one-rank ensemble model for model.
 """
 
 from __future__ import annotations
@@ -54,9 +61,12 @@ def _take(data: Mapping[str, torch.Tensor], index: torch.Tensor):
 
 def train_epoch(model, optimizer, train_data: Mapping[str, torch.Tensor],
                 batch_size: int, generator: torch.Generator,
-                config: config_lib.RateLearningConfig) -> None:
+                config: config_lib.RateLearningConfig,
+                models: Optional[tuple[int, int, int]] = None) -> None:
   """One epoch: each model shuffles its own rows, then floor(N / batch)
-  AdamW steps over all models at once. No host sync.
+  AdamW steps over all models at once. No host sync. `models` (start,
+  stop, total): the model holds ensemble members start .. stop - 1 of
+  `total`, whose permutations are drawn in full and sliced.
 
   Gather strategy, from the data's device: on the CPU the shuffled epoch is
   gathered once and the steps take slices of it (per-step gathers dominate
@@ -71,8 +81,9 @@ def train_epoch(model, optimizer, train_data: Mapping[str, torch.Tensor],
   num_models, data_size = next_state.shape
   num_batches = data_size // batch_size
   device = next_state.device
-  perm = torch.argsort(torch.rand((num_models, data_size),
-                                  generator=generator, device=device), dim=1)
+  start, stop, total = models or (0, num_models, num_models)
+  draws = torch.rand((total, data_size), generator=generator, device=device)
+  perm = torch.argsort(draws[start:stop], dim=1)
   batch_inds = perm[:, :num_batches * batch_size].reshape(
       num_models, num_batches, batch_size)
   columns = {k: train_data[k] for k in ('next_state', 'dt', 'context')}
@@ -106,9 +117,12 @@ def _eval_losses(model, data):
 def train_model(model, optimizer, train_data, test_data,
                 generator: torch.Generator,
                 config: config_lib.RateLearningConfig,
-                epochs: Optional[int] = None) -> torch.Tensor:
+                epochs: Optional[int] = None,
+                models: Optional[tuple[int, int, int]] = None
+                ) -> torch.Tensor:
   """`epochs` (default config.epochs) epochs of every model; returns the
-  metrics as a device tensor (len(METRIC_NAMES), M, epochs)."""
+  metrics as a device tensor (len(METRIC_NAMES), M, epochs). `models` as
+  in `train_epoch`."""
   epochs = config.epochs if epochs is None else epochs
   train_eval = {k: a[:, :MAX_EVAL_ROWS] for k, a in train_data.items()}
   test_eval = {k: a[:, :MAX_EVAL_ROWS] for k, a in test_data.items()}
@@ -116,7 +130,7 @@ def train_model(model, optimizer, train_data, test_data,
   for _ in range(epochs):
     model.train()
     train_epoch(model, optimizer, train_data, config.batch_size, generator,
-                config)
+                config, models)
     model.eval()
     with torch.no_grad():
       train_loss, train_rate, train_class = _eval_losses(model, train_eval)
@@ -206,6 +220,7 @@ def train_multiple_models(
     progress: Optional[Callable[[int, Mapping[str, float]], None]] = None,
     device=None,
     model: Optional[model_lib.RateMLP] = None,
+    mesh=None,
 ):
   """Trains the bootstrap ensemble as one batched program.
 
@@ -214,18 +229,36 @@ def train_multiple_models(
   from `generator` unless `model` is given. `epoch_chunk` epochs run
   between host reads of the metrics, after each of which
   `progress(epochs_done, last-epoch metrics averaged over models)` is
-  called. Returns (model, optimizer, metrics {name: (M, epochs) numpy}).
+  called. `mesh`: a parallel.mesh.Mesh with a 'model' axis dividing
+  num_models (see the module docstring); its device wins over `device`.
+  Returns (model, optimizer, metrics {name: (M, epochs) numpy}); with a
+  mesh the model holds every member and the optimizer this rank's.
   """
   from putting_dune_torch import device as device_lib
+  from putting_dune_torch.parallel import mesh as mesh_lib
 
-  device = device_lib.resolve_device(device)
-  train = to_device(train_datasets, device)
-  test = to_device(test_datasets, device)
+  device = device_lib.resolve_device(device if mesh is None else mesh.device)
+  start, stop = 0, num_models
+  if mesh is not None:
+    ranks = mesh.shape['model']
+    if num_models % ranks:
+      raise ValueError(f'{num_models} models do not split over {ranks} ranks')
+    block = num_models // ranks
+    start, stop = mesh.rank * block, (mesh.rank + 1) * block
+
+  def mine(datasets):
+    return {k: v[start:stop] for k, v in datasets.items()}
+
+  train = to_device(mine(train_datasets), device)
+  test = to_device(mine(test_datasets), device)
   if model is None:
     model = model_lib.RateMLP(
         num_models, train['context'].shape[-1], config.hidden_dimensions,
         config.num_states, config.batchnorm, config.dropout_rate,
         device=device, generator=generator)
+  full = model
+  if (start, stop) != (0, num_models):
+    model = model.models(start, stop)
   # One AdamW over the stacked (M, ...) parameters is M optimizers.
   optimizer = training_utils.adamw(model, config.learning_rate,
                                    config.weight_decay)
@@ -235,7 +268,8 @@ def train_multiple_models(
   while done < total:
     this_chunk = min(chunk, total - done)
     part = train_model(model, optimizer, train, test, generator, config,
-                       epochs=this_chunk).cpu().numpy()
+                       epochs=this_chunk, models=(start, stop, num_models))
+    part = mesh_lib.all_gather_cat(part, mesh, dim=1).cpu().numpy()
     parts.append(part)
     done += this_chunk
     if progress is not None:
@@ -243,4 +277,29 @@ def train_multiple_models(
                       for i, name in enumerate(METRIC_NAMES)})
   history = np.concatenate(parts, axis=-1)
   metrics = {name: history[i] for i, name in enumerate(METRIC_NAMES)}
-  return model, optimizer, metrics
+  if model is not full:
+    with torch.no_grad():
+      for name, value in model.state_dict().items():
+        full.state_dict()[name].copy_(mesh_lib.all_gather_cat(value, mesh))
+  return full, optimizer, metrics
+
+
+def dryrun_ensemble_training_step(mesh) -> dict:
+  """Trains a tiny ensemble (2 models a rank, 2 epochs) over the 'model'
+  axis of `mesh`; checks the losses are finite and returns the metrics."""
+  config = config_lib.RateLearningConfig(
+      batch_size=8, epochs=2, num_models=2 * mesh.shape['model'],
+      hidden_dimensions=(16,))
+  train_data, _ = data_utils.generate_synthetic_data(num_data=32,
+                                                     device=mesh.device)
+  train_data = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                    else np.asarray(v)) for k, v in train_data.items()}
+  train_sets, test_sets = create_dataset_splits(train_data, config.num_models,
+                                                seed=0)
+  generator = torch.Generator(device=mesh.device).manual_seed(0)
+  _, _, metrics = train_multiple_models(
+      train_sets, test_sets, generator, config.num_models, config,
+      mesh=mesh)
+  if not np.isfinite(metrics['train_loss']).all():
+    raise RuntimeError('ensemble mesh training loss not finite')
+  return metrics

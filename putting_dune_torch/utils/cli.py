@@ -9,8 +9,11 @@ Optional[float] or Optional[int] as that number (the JAX package passes
 those on as strings), anything else as a string.
 
 The JAX package's multi-process flags (--coordinator_address,
---num_processes, --process_id) parse, and any value raises: the
-multi-process trainers wait for the multi-GPU slice.
+--num_processes, --process_id) join this process to a torch.distributed
+world (parallel/mesh.initialize_distributed; with none of them, torchrun's
+environment if there is one), and the trainer then runs data-parallel
+over a 'data' mesh of every rank, one device each; rank 0 prints the
+progress lines.
 """
 
 from __future__ import annotations
@@ -60,8 +63,12 @@ def _add_field_arg(parser: argparse.ArgumentParser, field) -> None:
 
 def parse(config_cls: type, description: str,
           argv: Optional[Sequence[str]] = None) -> tuple[Any, Optional[str]]:
-  """(config, device) from the command line; raises NotImplementedError
-  when a multi-process flag is given."""
+  """(config, device) from the command line."""
+  return _parse(config_cls, description, argv)[:2]
+
+
+def _parse(config_cls, description, argv):
+  """(config, device, {multi-process flag: value})."""
   parser = argparse.ArgumentParser(description=description)
   for field in dataclasses.fields(config_cls):
     _add_field_arg(parser, field)
@@ -72,24 +79,26 @@ def parse(config_cls: type, description: str,
   parser.add_argument('--process_id', type=int, default=None)
   ns = vars(parser.parse_args(argv))
   device = ns.pop('device')
-  given = [f'--{k}' for k in MULTI_PROCESS_FLAGS if ns.pop(k) is not None]
-  if given:
-    raise NotImplementedError(
-        f'{", ".join(given)}: multi-process training is not ported yet '
-        '(ROADMAP queue 1, multi-GPU); run one process on one device.')
-  return config_cls(**ns), device
+  processes = {k: ns.pop(k) for k in MULTI_PROCESS_FLAGS}
+  return config_cls(**ns), device, processes
 
 
 def run_train_cli(config_cls: type, train_fn: Callable[..., Any],
                   description: str,
                   argv: Optional[Sequence[str]] = None) -> Any:
-  """Parses `config_cls` fields as flags and runs
-  `train_fn(config, device=..., progress=...)`, printing each epoch's
-  summary."""
-  config, device = parse(config_cls, description, argv)
+  """Parses `config_cls` fields as flags, joins the multi-process world
+  when asked, and runs `train_fn(config, device=..., mesh=...,
+  progress=...)`, printing each epoch's summary on rank 0."""
+  from putting_dune_torch.parallel import mesh as mesh_lib
+
+  config, device, processes = _parse(config_cls, description, argv)
+  mesh_lib.initialize_distributed(device=device, **processes)
+  rank, size = mesh_lib.world()
+  mesh = mesh_lib.make_mesh(device=device) if size > 1 else None
 
   def progress(epoch, summary):
-    items = ' '.join(f'{k}={v:.5f}' for k, v in summary.items())
-    print(f'epoch {epoch}: {items}', flush=True)
+    if rank == 0:
+      items = ' '.join(f'{k}={v:.5f}' for k, v in summary.items())
+      print(f'epoch {epoch}: {items}', flush=True)
 
-  return train_fn(config, device=device, progress=progress)
+  return train_fn(config, device=device, mesh=mesh, progress=progress)

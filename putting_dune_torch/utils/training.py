@@ -1,6 +1,13 @@
 """What the three perception trainers share: the train state, optax's
 AdamW, the precision context and the epoch loop with best-of-N
-checkpoints (the JAX trainers' `train` bodies, one copy here)."""
+checkpoints (the JAX trainers' `train` bodies, one copy here).
+
+Data parallel (a parallel.mesh.Mesh with a 'data' axis): each rank draws
+`process_local_batch_size` examples a step from its own stream
+(`process_data_seed`; a written dataset gives each rank its own examples),
+the gradients are all-reduce-averaged before AdamW, each epoch's summary
+is averaged over the ranks before `best_fn` reads it, and rank 0 alone
+writes the checkpoints."""
 
 from __future__ import annotations
 
@@ -62,14 +69,18 @@ def precision(allow_tf32: bool = False) -> Iterator[None]:
     torch.backends.cuda.matmul.allow_tf32 = matmul
 
 
-def apply_gradients(state: TrainState) -> None:
-  """The optimizer step on the gradients in `.grad`. A parameter that
-  took no part in the loss gets a zero gradient first, so that AdamW
-  still decays it, as optax's adamw does (torch skips parameters without
-  a gradient)."""
-  for p in state.model.parameters():
+def apply_gradients(state: TrainState, mesh=None) -> None:
+  """The optimizer step on the gradients in `.grad`, averaged over the
+  mesh's ranks first. A parameter that took no part in the loss gets a
+  zero gradient first, so that AdamW still decays it, as optax's adamw
+  does (torch skips parameters without a gradient)."""
+  from putting_dune_torch.parallel import mesh as mesh_lib
+
+  params = list(state.model.parameters())
+  for p in params:
     if p.grad is None:
       p.grad = torch.zeros_like(p)
+  mesh_lib.all_reduce_grads_(params, mesh, average=True)
   state.optimizer.step()
 
 
@@ -85,26 +96,38 @@ def check_config(config) -> None:
   datasets.parse_data_source(config.data_source)  # raises on an unknown one
 
 
+def local_batch_size(config) -> int:
+  """This rank's share of config.batch_size (all of it at one rank)."""
+  from putting_dune_torch.parallel import mesh as mesh_lib
+
+  return mesh_lib.process_local_batch_size(config.batch_size)
+
+
 def data_streams(config, data_lib, device, synthetic):
-  """(train_iter, eval_iter) of a trainer. With data_source 'synthetic'
-  both come from `synthetic(seed, train)` (seeds config.seed and
-  config.seed + 1); with 'records:<dir>' the train stream reads the
-  dataset's train split and the eval stream its `test/` split, or the
+  """(train_iter, eval_iter) of a trainer, each batch this rank's share.
+  With data_source 'synthetic' both come from `synthetic(seed, train)`
+  (seeds `process_data_seed` of config.seed and config.seed + 1, which at
+  one rank are those seeds); with 'records:<dir>' the train stream reads
+  the dataset's train split and the eval stream its `test/` split, or the
   synthetic eval stream where the dataset has none."""
   from putting_dune_torch.io import datasets
+  from putting_dune_torch.parallel import mesh as mesh_lib
 
+  seed = mesh_lib.process_data_seed
   records_dir = datasets.parse_data_source(config.data_source)
   if records_dir is None:
-    return synthetic(config.seed, True), synthetic(config.seed + 1, False)
+    return (synthetic(seed(config.seed), True),
+            synthetic(seed(config.seed + 1), False))
+  batch = local_batch_size(config)
   train_iter = data_lib.records_dataset_iterator(
-      records_dir, config.seed, batch_size=config.batch_size, split='train',
+      records_dir, config.seed, batch_size=batch, split='train',
       device=device)
   try:
     eval_iter = data_lib.records_dataset_iterator(
-        records_dir, config.seed + 1, batch_size=config.batch_size,
-        split='test', device=device)
+        records_dir, config.seed + 1, batch_size=batch, split='test',
+        device=device)
   except FileNotFoundError:
-    eval_iter = synthetic(config.seed + 1, False)
+    eval_iter = synthetic(seed(config.seed + 1), False)
   return train_iter, eval_iter
 
 
@@ -139,21 +162,29 @@ def run_epochs(
     *,
     progress=None,
     stop_fn=None,
+    mesh=None,
 ) -> TrainState:
   """The JAX trainers' loop: resume from the latest kept checkpoint (its
   epoch + 1), then per epoch `steps_per_epoch` train steps and
-  `eval_steps` eval steps, a summary, a checkpoint by epoch and a
-  `progress(epoch, summary)` call; `stop_fn()` true before an epoch ends
-  the run."""
+  `eval_steps` eval steps, a summary (averaged over the mesh's ranks), a
+  checkpoint by epoch (rank 0's) and a `progress(epoch, summary)` call;
+  `stop_fn()` true before an epoch ends the run. Over a mesh every rank
+  resumes from rank 0's checkpoint, and stops when any rank's `stop_fn`
+  says so, so that the ranks run the same epochs."""
+  from putting_dune_torch.parallel import mesh as mesh_lib
+
+  writer = mesh is None or mesh.rank == 0
   ckpt = manager(config.workdir, best_fn)
   start_epoch = 0
-  latest = ckpt.latest_step()
+  latest = ckpt.latest_step() if writer else None
+  restored = None if latest is None else ckpt.restore(
+      latest, map_location='cpu')
+  latest, restored = mesh_lib.broadcast_object((latest, restored), mesh)
   if latest is not None:
-    state.load_state_dict(ckpt.restore(
-        latest, map_location=next(state.model.parameters()).device))
+    state.load_state_dict(restored)
     start_epoch = latest + 1
   for epoch in range(start_epoch, config.epochs):
-    if stop_fn is not None and stop_fn():
+    if stop_fn is not None and mesh_lib.any_rank(stop_fn(), mesh):
       break
     train_metrics = [train_step(state, next(train_iter))
                      for _ in range(config.steps_per_epoch)]
@@ -161,7 +192,13 @@ def run_epochs(
       eval_metrics = [eval_step(state, next(eval_iter))
                       for _ in range(config.eval_steps)]
     summary = summarize(train_metrics, eval_metrics)
-    ckpt.save(epoch, state.state_dict(), metrics=summary)
+    if mesh is not None and mesh.distributed:
+      values = torch.tensor(list(summary.values()), dtype=torch.float64,
+                            device=mesh.device)
+      mesh_lib.all_reduce_(values, mesh)
+      summary = dict(zip(summary, (values / mesh.size).tolist()))
+    if writer:
+      ckpt.save(epoch, state.state_dict(), metrics=summary)
     if progress is not None:
       progress(epoch, summary)
   return state

@@ -424,9 +424,10 @@ def test_splat_render_is_bit_equal_to_the_atom_order_version(
   assert float(got.amax()) == 1.0
 
 
-def _toy_update_on(device, seed=0):
+def _toy_update_on(device, seed=0, mesh=None):
   """One PPO update on the toy env (tests/torch_toy_env.py) on `device`,
-  from fixed parameters with injected noises and permutations."""
+  from fixed parameters with injected noises and permutations; over `mesh`
+  when given."""
   import torch_toy_env
   from putting_dune_torch.agents import ppo
 
@@ -439,7 +440,7 @@ def _toy_update_on(device, seed=0):
   noise = torch.randn((1, 8, 256, 2), generator=gen)
   perms = torch.stack([torch.randperm(8 * 256, generator=gen)
                        for _ in range(2)])[None]
-  init_carry, run_updates = ppo.make_train_fns(env, config)
+  init_carry, run_updates = ppo.make_train_fns(env, config, mesh)
   carry = init_carry(seed, ppo.actor_critic_to_flax(template))
   carry, metrics = run_updates(carry, 1, noise=noise.to(device),
                                perms=perms.to(device))
@@ -648,3 +649,50 @@ def test_one_train_step_on_the_card_matches_the_cpu(cuda, trainer):
   for key, g in want[1].items():
     bound = 1e-4 * float(g.abs().max())
     assert float((got[1][key] - g).abs().max()) <= bound, key
+
+
+def test_world_one_nccl_ppo_update_is_the_unsharded_update(cuda):
+  import torch_toy_env
+  from putting_dune_torch.parallel import mesh as mesh_lib
+
+  want_params, want_metrics = _toy_update_on(cuda)
+  mesh_lib.initialize_distributed(f'localhost:{mesh_lib.free_port()}', 1, 0,
+                                  device=cuda)
+  try:
+    mesh = mesh_lib.make_mesh(device=cuda)
+    assert mesh.distributed and torch.distributed.get_backend() == 'nccl'
+    got_params, got_metrics = _toy_update_on(cuda, mesh=mesh)
+  finally:
+    mesh_lib.shutdown()
+  assert torch_toy_env.max_tree_diff(got_params, want_params) <= 1e-6
+  for name, value in want_metrics.items():
+    assert abs(got_metrics[name] - value) <= 1e-6, name
+
+
+def test_rendered_eval_frame_round_trips_through_gif_and_png(cuda, tmp_path):
+  from putting_dune_torch import eval_lib
+  from putting_dune_torch import plotting_utils
+  from putting_dune_torch import registry
+  from putting_dune_torch import run_helpers
+  from putting_dune_torch.env import env as env_lib
+  from putting_dune_torch.io import gif
+  from putting_dune_torch.io import png
+
+  exp = registry.create_eval_experiment('ppo_simple_images_tf')
+  env = run_helpers.create_batched_env(
+      exp.get_adapters_and_goal, exp.get_simulator_config, batch_size=2,
+      device=cuda)
+  state, ts = env.reset(env_lib.make_generator(0, cuda))
+  assert ts.observation['image'].is_cuda
+  pose = [x.cpu().numpy()[None] for x in eval_lib.video_pose(state, 2)]
+  video = dict(zip(('si', 'offset', 'theta', 'goal'), pose))
+  positions, numbers, goal = eval_lib.video_scenes(env.lattice, video, 1, 1)
+  clip = plotting_utils.generate_video_from_trajectory(
+      positions, numbers, goal_position=goal)
+  frame = clip.frames[0]
+  assert frame.shape == (500, 500, 3) and frame.std() > 0
+  decoded = gif.decode(clip.to_bytes())
+  assert decoded.count == 1
+  np.testing.assert_array_equal(decoded.frames[0], frame)
+  np.testing.assert_array_equal(png.imdecode(png.imencode(frame))[..., ::-1],
+                                frame)

@@ -6,7 +6,9 @@ packages have must agree.
 """
 
 import dataclasses
+import os
 import sys
+import types
 
 import pytest
 
@@ -49,15 +51,23 @@ def test_nobatched_stays_an_alias():
 
 
 def test_video_save_dir_raises_in_both_evaluators(tmp_path):
-  with pytest.raises(NotImplementedError, match='plotting_utils'):
-    t_eval.main(t_eval.Args(experiment_name='greedy_simple_rates',
-                            video_save_dir=str(tmp_path), device='cpu'))
-  with pytest.raises(NotImplementedError, match='plotting_utils'):
-    t_eval.main(t_eval.Args(experiment_name='greedy_simple_rates',
-                            batched=False, video_save_dir=str(tmp_path),
-                            device='cpu'))
-  with pytest.raises(NotImplementedError, match='plotting_utils'):
-    t_eval_lib.evaluate_batched(None, None, [], video_save_dir='v')
+  # Both evaluators now write {seed}.gif; what still raises is a video
+  # asked of a mesh-sharded evaluation, with the JAX package's message.
+  batched = t_eval.main(t_eval.Args(
+      experiment_name='greedy_simple_rates', device='cpu',
+      video_save_dir=str(tmp_path / 'batched')))
+  assert sorted(os.listdir(tmp_path / 'batched')) == [
+      f'{s}.gif' for s in range(4)]
+  host = t_eval.main(t_eval.Args(
+      experiment_name='greedy_simple_rates', batched=False, device='cpu',
+      video_save_dir=str(tmp_path / 'host')))
+  assert sorted(os.listdir(tmp_path / 'host')) == sorted(
+      f'{r.seed}.gif' for r in host['results'])
+  assert batched['aggregate']['average_num_times_reached_goal'] == 1.0
+  mesh = types.SimpleNamespace(shape={'data': 1}, rank=0)
+  with pytest.raises(ValueError, match='video'):
+    t_eval_lib.evaluate_batched(None, None, [], video_save_dir='v',
+                                mesh=mesh)
 
 
 # --- the pipeline CLIs -------------------------------------------------------

@@ -3,8 +3,10 @@ the host agents, the dm_env wrapper, the host evaluator and the eval CLI's
 --nobatched / --seed / --output_json."""
 
 import dataclasses
+import datetime as dt
 import json
 import math
+import types
 
 import numpy as np
 import pytest
@@ -218,9 +220,21 @@ def test_wrapper_image_observations_match_the_spec():
   _assert_valid(env, env.step(np.zeros(2)))
 
 
-def test_evaluate_refuses_video():
-  with pytest.raises(NotImplementedError, match='plotting_utils'):
-    t_eval_lib.evaluate(None, _wrapper(), [0], video_save_dir='/tmp/v')
+def test_evaluate_refuses_video(tmp_path):
+  # The host evaluator now writes one GIF a seed: a frame for the reset
+  # and one a step.
+  from putting_dune_torch.io import gif
+
+  agent = types.SimpleNamespace(set_mode=lambda mode: None,
+                                step=lambda ts: np.zeros(2, np.float32))
+  env = _wrapper()
+  (result,) = t_eval_lib.evaluate(agent, env, [0],
+                                  timeout=dt.timedelta(seconds=40),
+                                  video_save_dir=str(tmp_path))
+  with open(tmp_path / '0.gif', 'rb') as f:
+    video = gif.decode(f.read(), limit=1)
+  assert video.count == result.num_actions_taken + 1
+  assert video.frames[0].shape == (500, 500, 3)
 
 
 # --- the host evaluator and the CLI ------------------------------------------------
@@ -281,6 +295,6 @@ def test_cli_mesh_with_nobatched_raises():
     t_eval_cli.main(t_eval_cli.Args(
         experiment_name='greedy_simple_rates', batched=False, mesh='data',
         device='cpu'))
-  with pytest.raises(NotImplementedError, match='mesh'):
+  with pytest.raises(ValueError, match='Unknown mesh axis'):
     t_eval_cli.main(t_eval_cli.Args(
-        experiment_name='greedy_simple_rates', mesh='data', device='cpu'))
+        experiment_name='greedy_simple_rates', mesh='model:2', device='cpu'))

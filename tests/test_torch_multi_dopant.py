@@ -69,7 +69,8 @@ def _gen(seed):
 def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
   banned = ('jax', 'flax', 'putting_dune_tpu', 'optax', 'orbax', 'cv2',
             'sklearn', 'dm_env', 'google', 'matplotlib', 'networkx',
-            'tensorflow', 'riegeli', 'array_record', 'google_crc32c')
+            'tensorflow', 'riegeli', 'array_record', 'google_crc32c', 'PIL',
+            'imageio')
   sources = sorted((REPO / 'putting_dune_torch').rglob('*.py'))
   sources.append(REPO / 'chip_smoke.py')
   assert len(sources) > 30
@@ -99,7 +100,9 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                  'io/datasets', 'io/artifacts', 'io/png',
                  'pipeline/convert_riegeli', 'pipeline/import_microscope_data',
                  'pipeline/import_tfds_dataset', 'pipeline/train_rate_learner',
-                 'simulator_observers', 'atom_detection/data'):
+                 'simulator_observers', 'atom_detection/data',
+                 'plotting_utils', 'utils/raster', 'io/gif',
+                 'parallel/__init__', 'parallel/mesh'):
     assert f'putting_dune_torch/{module}.py' in names
   for path in sources:
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -631,10 +631,14 @@ def test_train_cli_parses_noisy_fraction_as_a_number(monkeypatch):
 
 
 def test_train_cli_refuses_multi_process_flags():
+  # The three flags now join a torch.distributed world together; one of
+  # them alone is refused before any group forms.
   for flag in ('--coordinator_address=localhost:1', '--num_processes=2',
                '--process_id=0'):
-    with pytest.raises(NotImplementedError, match='multi-process'):
-      t_cli.parse(t_det_train.Config, '', ['--workdir=w', flag])
+    with pytest.raises(ValueError, match='go together'):
+      t_cli.run_train_cli(t_det_train.Config, t_det_train.train, '',
+                          ['--workdir=w', '--device=cpu', flag])
+  assert not torch.distributed.is_initialized()
 
 
 def test_train_cli_runs_a_trainer(tmp_path, capsys):

@@ -234,11 +234,13 @@ def test_train_rate_learner_distills_to_one_model(monkeypatch, tmp_path,
 
 def test_train_rate_learner_refuses_what_is_not_ported(tmp_path, source):
   base = dict(source_path=source, workdir=str(tmp_path / 'x'), device='cpu')
+  # The plots are ported now; the sklearn learners still wait, and are
+  # refused with the default plot flags too.
   with pytest.raises(NotImplementedError, match='sklearn'):
     t_trl.main(t_trl.Args(learner_type='random_forest', plot_metrics=False,
                           visualize_rates=False, **base))
-  with pytest.raises(NotImplementedError, match='--noplot_metrics'):
-    t_trl.main(t_trl.Args(**base))
+  with pytest.raises(NotImplementedError, match='sklearn'):
+    t_trl.main(t_trl.Args(learner_type='knn', **base))
   assert not os.path.exists(base['workdir'])
 
 

@@ -158,5 +158,5 @@ def test_cli_trains_saves_and_evaluates(tmp_path):
   with open(workdir / 'eval.json') as f:
     assert json.load(f) == out['eval']
   with pytest.raises(ValueError, match='mesh'):
-    train_ppo.main([f'--workdir={tmp_path / "m"}', '--mesh=data',
+    train_ppo.main([f'--workdir={tmp_path / "m"}', '--mesh=model:2',
                     '--device=cpu'])
