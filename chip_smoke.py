@@ -214,7 +214,19 @@ Phases (any failure exits non-zero before the final line):
       `--mesh=data:2` refused on one card; (e) `noise_chain`, the pair and
       `clahe_small` against their twins on the frames (a) and (d) gave
       them;
-  23. a `kernels` JSON line; 24. the result JSON line, last.
+  23. the classical rate learners and JPEG (no kernel of its own): (a)
+      the rate-learner CLI once for each of the five classical types
+      (sklearn_mlp, knn, gp, random_forest, svm), five subprocesses at
+      once on phase 21's aligned file at the CLI's defaults with only
+      --num_models cut (CLASSICAL_MODELS): seconds each, mean train / test
+      accuracy against CLASSICAL_BARS, the fitted tensors on `cuda`, the
+      files written; (b) the committed JAX-package `.joblib` fixtures
+      (tests/data/torch_classifiers) read by the port, `predict_proba` on
+      the card within 1e-9 of sklearn's recorded arrays; (c) the committed
+      JPEGs (tests/data/torch_jpeg) decoded on the host with max |d| 0
+      against cv2's recorded pixels, MB/s, and a TFDS shard of them
+      through the import CLI;
+  24. a `kernels` JSON line; 25. the result JSON line, last.
 
 It imports nothing of JAX or of putting_dune_tpu (the shipped weights are
 read as data).
@@ -2612,6 +2624,214 @@ def _hold_pipeline_kernels(dev, recorded) -> dict:
   return errs
 
 
+# Phase 23a runs the rate-learner CLI for each classical learner type at its
+# defaults (augmentation and bootstrap on, the MLP's max_iter 500) on phase
+# 21's aligned file, with --num_models cut from 100 to CLASSICAL_MODELS. The
+# bars are the JAX package's mean test accuracy on a CPU recording made as
+# phase 21 makes its own (scripts/classical_bars.py, 2 models), less three
+# binomial standard errors (PERF.md section 2).
+CLASSICAL_MODELS = 2
+CLASSICAL_LEARNERS = ('knn', 'sklearn_mlp', 'gp', 'random_forest', 'svm')
+CLASSICAL_BARS = {
+    'knn': 0.6541,
+    'sklearn_mlp': 0.6621,
+    'gp': 0.6621,
+    'random_forest': 0.6621,
+    'svm': 0.6621,
+}
+CLASSICAL_TIMEOUT_S = 600
+CLASSIFIER_FIXTURES = os.path.join(ROOT, 'tests', 'data',
+                                   'torch_classifiers')
+JPEG_FIXTURES = os.path.join(ROOT, 'tests', 'data', 'torch_jpeg')
+JPEG_REPEATS = 50
+
+
+def classical_learners(dev, smi, aligned_path) -> dict:
+  """Phase 23 (see the module docstring); returns the numbers it read."""
+  import tempfile
+
+  with tempfile.TemporaryDirectory(prefix='smoke_classical_') as tmp:
+    return _classical_learners(dev, smi, aligned_path, tmp)
+
+
+def _classical_learners(dev, smi, aligned_path, tmp) -> dict:
+  import glob
+
+  import numpy as np
+  import torch
+
+  from putting_dune_torch.classifiers import joblib_io
+  from putting_dune_torch.io import datasets as datasets_lib
+  from putting_dune_torch.io import jpeg
+  from putting_dune_torch.io import records
+  from putting_dune_torch.ops import _build
+  from putting_dune_torch.proto import wire
+
+  out = {}
+  device_flag = [] if dev.type == 'cuda' else ['--device=cpu']
+  _build.reset_launches()
+
+  # -- 23a. the five classical learner types through the CLI, at once ---------
+  print(f'23a --num_models cut from 100 to {CLASSICAL_MODELS}; everything '
+        'else at the CLI defaults', flush=True)
+  procs, started, logs = {}, {}, {}
+  for learner in CLASSICAL_LEARNERS:
+    workdir = os.path.join(tmp, learner)
+    logs[learner] = open(os.path.join(tmp, f'{learner}.log'), 'w+')
+    started[learner] = time.perf_counter()
+    procs[learner] = subprocess.Popen(
+        [sys.executable, '-m',
+         'putting_dune_torch.pipeline.train_rate_learner',
+         f'--source_path={aligned_path}', f'--workdir={workdir}',
+         f'--learner_type={learner}', f'--num_models={CLASSICAL_MODELS}',
+         '--previous_controls_at_current_timestep', *device_flag],
+        cwd=ROOT, stdout=logs[learner], stderr=subprocess.STDOUT, text=True)
+  runs = {}
+  try:
+    # Each learner's seconds run from the common start to its own exit.
+    while len(runs) < len(procs):
+      for learner, proc in procs.items():
+        if learner not in runs and proc.poll() is not None:
+          runs[learner] = time.perf_counter() - started[learner]
+      check(time.perf_counter() - min(started.values())
+            < CLASSICAL_TIMEOUT_S, f'23a: still running after '
+            f'{CLASSICAL_TIMEOUT_S} s: {sorted(set(procs) - set(runs))}')
+      time.sleep(0.05)
+  finally:
+    for proc in procs.values():
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+  texts = {}
+  for learner, log in logs.items():
+    log.seek(0)
+    texts[learner] = log.read()
+    log.close()
+  learners = {}
+  for learner in CLASSICAL_LEARNERS:
+    text, seconds = texts[learner], runs[learner]
+    check(procs[learner].returncode == 0, f'23a: train_rate_learner '
+          f'--learner_type={learner} failed:\n{text[-3000:]}')
+    workdir = os.path.join(tmp, learner)
+    metrics = np.load(os.path.join(workdir, 'metrics.npz'))
+    train_acc = float(metrics['train_accuracy'].mean())
+    test_acc = float(metrics['test_accuracy'].mean())
+    on = sorted(set(line.rsplit('fitted tensors on ', 1)[1].rstrip(')')
+                    for line in text.splitlines()
+                    if 'fitted tensors on ' in line))
+    rows = [line.split('(', 1)[1].split(' rows', 1)[0]
+            for line in text.splitlines() if 'fitted tensors on ' in line]
+    files = sorted(os.listdir(workdir))
+    bar = CLASSICAL_BARS[learner]
+    print(f'23a {learner}: {seconds:.2f} s (five at once), {CLASSICAL_MODELS} '
+          f'models of {rows} rows, train accuracy {train_acc:.4f}, test '
+          f'accuracy {test_acc:.4f} (bar {bar}), fitted tensors on {on}, '
+          f'files {files}', flush=True)
+    check(on == [str(torch.device(dev.type, 0)) if dev.type == 'cuda'
+                 else 'cpu'],
+          f'23a {learner}: fitted tensors on {on}, not on {dev}')
+    check(len(metrics['test_accuracy']) == CLASSICAL_MODELS
+          and np.isfinite(metrics['test_accuracy']).all(),
+          f'23a {learner}: test accuracies missing or not finite')
+    check(bar is None or test_acc >= bar,
+          f'23a {learner}: test accuracy {test_acc:.4f} below the bar {bar}')
+    want = sorted([f'{learner}_{i}{joblib_io.SUFFIX}'
+                   for i in range(CLASSICAL_MODELS)]
+                  + [f'{learner}_ensemble{joblib_io.SUFFIX}', 'metrics.npz',
+                     'avg_context_rates.png'])
+    check(files == want, f'23a {learner}: wrote {files}, expected {want}')
+    learners[learner] = dict(seconds=seconds, train_accuracy=train_acc,
+                             test_accuracy=test_acc, bar=bar, device=on)
+  out['learners'] = learners
+
+  # -- 23b. the JAX package's learner files, on the card ------------------------
+  queries = np.load(os.path.join(CLASSIFIER_FIXTURES, 'queries.npy'))
+  errors = {}
+  for name in CLASSICAL_LEARNERS + ('ensemble',):
+    t0 = time.perf_counter()
+    model = joblib_io.load(os.path.join(CLASSIFIER_FIXTURES,
+                                        f'{name}.joblib'), device=dev)
+    got = model.predict_proba_tensor(queries)
+    check(got.device.type == dev.type and got.dtype == torch.float64,
+          f'23b {name}: predict_proba on {got.device}, {got.dtype}')
+    want = np.load(os.path.join(CLASSIFIER_FIXTURES, f'{name}_proba.npy'))
+    errors[name] = float(np.abs(got.cpu().numpy() - want).max())
+    print(f'23b {name}.joblib read and predicted on {got.device} in '
+          f'{time.perf_counter() - t0:.3f} s: max|d| {errors[name]:.3g} '
+          f'against sklearn on {len(queries)} queries', flush=True)
+    check(errors[name] <= 1e-9, f'23b {name}: max|d| {errors[name]} > 1e-9')
+  out['joblib_max_abs_err'] = errors
+
+  # -- 23c. JPEG on the host, and a TFDS shard of them through the CLI ---------
+  names = sorted(os.path.basename(p)[:-4]
+                 for p in glob.glob(os.path.join(JPEG_FIXTURES, '*.jpg')))
+  check(len(names) >= 8, f'23c: {len(names)} JPEG fixtures')
+  payloads, pixels = {}, {}
+  for name in names:
+    with open(os.path.join(JPEG_FIXTURES, f'{name}.jpg'), 'rb') as f:
+      payloads[name] = f.read()
+    pixels[name] = np.load(os.path.join(JPEG_FIXTURES, f'{name}.npy'))
+    got = jpeg.imdecode(payloads[name])
+    check(got.shape == pixels[name].shape, f'23c {name}: shape {got.shape}')
+    err = int(np.abs(got.astype(int) - pixels[name]).max())
+    check(err == 0, f'23c {name}: max|d| {err} against cv2')
+  nbytes = sum(len(p) for p in payloads.values())
+  npx = sum(p.shape[0] * p.shape[1] for p in pixels.values())
+  t0 = time.perf_counter()
+  for _ in range(JPEG_REPEATS):
+    for p in payloads.values():
+      jpeg.imdecode(p)
+  decode_s = (time.perf_counter() - t0) / JPEG_REPEATS
+  print(f'23c {len(names)} JPEGs decoded on the host, max|d| 0 against cv2: '
+        f'{nbytes / 1e6 / decode_s:.2f} MB/s, {npx / 1e6 / decode_s:.2f} '
+        f'Mpx/s ({nbytes} bytes, {npx} pixels, {JPEG_REPEATS} passes)',
+        flush=True)
+  dataset = os.path.join(tmp, 'tfds', 'jpegs', '1.0.0')
+  os.makedirs(dataset)
+  image_type = 'tensorflow_datasets.core.features.image_feature.Image'
+  with open(os.path.join(dataset, 'features.json'), 'w') as f:
+    json.dump({'type': ('tensorflow_datasets.core.features.features_dict'
+                        '.FeaturesDict'),
+               'content': {'features': {'image': {
+                   'type': image_type,
+                   'content': {'shape': [None, None, None], 'dtype': 'uint8',
+                               'encoding_format': 'jpeg'}}}}}, f)
+  examples = [wire.ExampleCompat(features=wire.FeaturesCompat(feature={
+      'image': wire.FeatureCompat(bytes_list=wire.BytesListCompat(
+          value=[payloads[name]]))})).SerializeToString() for name in names]
+  records.write_tfrecords(
+      os.path.join(dataset, 'jpegs-train.tfrecord-00000-of-00001'), examples)
+  t0 = time.perf_counter()
+  run = subprocess.run(
+      [sys.executable, '-m', 'putting_dune_torch.pipeline.import_tfds_dataset',
+       f'--dataset_dir={dataset}', f'--output_dir={os.path.join(tmp, "imp")}'],
+      cwd=ROOT, capture_output=True, text=True, timeout=300)
+  import_s = time.perf_counter() - t0
+  check(run.returncode == 0, '23c: import_tfds_dataset failed:\n'
+        + run.stdout[-2000:] + run.stderr[-2000:])
+  imported = list(datasets_lib.iterate_examples(
+      datasets_lib.split_dir(os.path.join(tmp, 'imp'), 'train')))
+  check(len(imported) == len(names), f'23c: {len(imported)} examples back')
+  for name, example in zip(names, imported):
+    want = pixels[name]
+    want = want[..., None] if want.ndim == 2 else want[..., ::-1]
+    check(np.array_equal(example['image'], want),
+          f'23c {name}: the imported image differs from cv2 in RGB')
+  print(f'23c import_tfds_dataset CLI on a shard of {len(names)} JPEG '
+        f'features: {import_s:.2f} s, every image equal to cv2\'s in RGB',
+        flush=True)
+  out['jpeg'] = dict(mb_s=nbytes / 1e6 / decode_s,
+                     mpx_s=npx / 1e6 / decode_s, import_s=import_s)
+
+  # -- 23d. no kernel of its own --------------------------------------------------
+  launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+  print('23d no new kernel: the learners run PyTorch float64 ops on the '
+        'card (cuSOLVER Cholesky, cuBLAS GEMMs, sort / topk) and the JPEG '
+        f'decoder is host C++; hand-kernel launches in this process during '
+        f'phase 23: {launches}', flush=True)
+  return out
+
+
 def main() -> None:
   import torch
 
@@ -3418,10 +3638,16 @@ def main() -> None:
     print(f'plots and mesh summary ({time.perf_counter() - t0:.1f} s): '
           f'{json.dumps(summary)}', flush=True)
 
-  print(f'phases 1-22 in {time.perf_counter() - t_smoke:.1f} s on {smi}',
+    # -- 23. the classical rate learners and JPEG ---------------------------------
+    t0 = time.perf_counter()
+    summary = classical_learners(dev, smi, aligned)
+    print(f'classical learners and JPEG summary ({time.perf_counter() - t0:.1f}'
+          f' s): {json.dumps(summary)}', flush=True)
+
+  print(f'phases 1-23 in {time.perf_counter() - t_smoke:.1f} s on {smi}',
         flush=True)
 
-  # -- 23. kernels line --------------------------------------------------------
+  # -- 24. kernels line --------------------------------------------------------
   kernels = []
   for name, (ms, plain_ms, err, bound_ms, bound_by, source) in rows.items():
     by_path = {path: counts[name] for path, counts in path_launches.items()}

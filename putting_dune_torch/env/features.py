@@ -7,7 +7,7 @@ putting_dune_tpu/env/features.py.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Union
 
 import numpy as np
 import torch
@@ -16,6 +16,9 @@ from putting_dune_torch import geometry
 from putting_dune_torch import structures
 from putting_dune_torch.env import goals as goals_lib
 from putting_dune_torch.imaging import render as render_lib
+
+# What a feature constructor returns: one array, or a dict of them.
+Features = Union[torch.Tensor, Dict[str, torch.Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -34,8 +34,14 @@ from putting_dune_torch.agents import ppo
 from putting_dune_torch.image_alignment import data as data_lib
 from putting_dune_torch.image_alignment import model as model_lib
 from putting_dune_torch.io import serialization
-from putting_dune_torch.io.serialization import load_arch  # noqa: F401
 from putting_dune_torch.utils import training
+
+
+def load_arch(workdir: str) -> Optional[dict]:
+  """The arch.json sidecar of a saved aligner if present (None
+  otherwise)."""
+  return serialization.load_arch(workdir)
+
 
 TrainState = training.TrainState
 

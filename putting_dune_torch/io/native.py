@@ -2,8 +2,9 @@
 
 `native/tfrecord.cc` (TFRecord framing, CRC32C), `native/riegeli_hash.cc`
 (HighwayHash-64 over the vendored portable headers in
-`native/third_party/highwayhash`) and `native/gif_lzw.cc` (the GIF
-compressor of the episode videos) build into one shared library in the
+`native/third_party/highwayhash`), `native/gif_lzw.cc` (the GIF
+compressor of the episode videos) and `native/jpeg.cc` (the JPEG decoder
+of `io/jpeg.py`) build into one shared library in the
 git-ignored `putting_dune_torch/_build/`, named by a hash of the sources,
 the headers and the flags like the CUDA kernels (`ops/_build.py`), and load
 through ctypes. A failed build raises: nothing falls back to the plain
@@ -26,7 +27,7 @@ import threading
 _PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 NATIVE_DIR = _PKG_DIR / 'native'
 BUILD_DIR = _PKG_DIR / '_build'
-SOURCES = ('tfrecord.cc', 'riegeli_hash.cc', 'gif_lzw.cc')
+SOURCES = ('tfrecord.cc', 'riegeli_hash.cc', 'gif_lzw.cc', 'jpeg.cc')
 # -fno-strict-aliasing: hh_portable.h type-puns its u64 state as u32, which
 # -O2 and above miscompile into wrong digests without it.
 CXX_FLAGS = ('-O3', '-std=c++17', '-fPIC', '-fno-strict-aliasing', '-shared')
@@ -92,6 +93,14 @@ def load() -> ctypes.CDLL:
       lib.pd_gif_lzw_encode.argtypes = [
           ctypes.c_char_p, c_u64, ctypes.c_int, ctypes.c_char_p, c_u64]
       lib.pd_gif_lzw_encode.restype = ctypes.c_int64
+      lib.pd_jpeg_header.argtypes = [
+          ctypes.c_char_p, c_u64, ctypes.POINTER(ctypes.c_int32),
+          ctypes.c_char_p, c_u64]
+      lib.pd_jpeg_header.restype = ctypes.c_int
+      lib.pd_jpeg_decode.argtypes = [
+          ctypes.c_char_p, c_u64, ctypes.c_void_p, c_u64, ctypes.c_char_p,
+          c_u64]
+      lib.pd_jpeg_decode.restype = ctypes.c_int
       _lib = lib
     return _lib
 

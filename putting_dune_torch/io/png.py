@@ -8,7 +8,7 @@ data unfiltered by the five row filters (None, Sub, Up, Average, Paeth).
 (H, W) for grey, (H, W, 3) BGR and (H, W, 4) BGRA, as uint8 or uint16.
 Every chunk's CRC is checked. Anything else raises ValueError: palette and
 grey-alpha images, bit depths below 8, interlacing, and any payload that is
-not a PNG (JPEG decoding is not ported: ROADMAP queue 1, IO).
+not a PNG (JPEG payloads are `io/jpeg.py`'s).
 
 `imencode(rgb)` writes an 8-bit RGB (or grey) PNG through the standard
 library's zlib, every row with filter 0: what the port's plots are saved
@@ -91,10 +91,10 @@ def imdecode(data: bytes) -> np.ndarray:
   """A PNG's pixels as cv2.IMREAD_UNCHANGED gives them (BGR order)."""
   data = bytes(data)
   if not data.startswith(SIGNATURE):
-    kind = 'JPEG' if data[:3] == b'\xff\xd8\xff' else 'not a PNG'
-    raise ValueError(
-        f'Image feature bytes are {kind}: the port decodes PNG only (JPEG '
-        'decoding is not ported: ROADMAP queue 1, IO).')
+    if data[:3] == b'\xff\xd8\xff':
+      raise ValueError('Image bytes are JPEG, not a PNG: decode them with '
+                       'io/jpeg.imdecode')
+    raise ValueError('Image bytes are not a PNG')
   header, idat = None, []
   for kind, body in _chunks(data):
     if kind == b'IHDR':

@@ -264,6 +264,29 @@ def global_batch(tree, mesh: Mesh, axis: str = 'data'):
   return _map(gather, tree)
 
 
+def global_batch_multihost(tree, mesh: Mesh, axis: str = 'data'):
+  """The process-group assembly of `global_batch`, unconditionally: a
+  leaf whose leading dim times the world size divides the axis is
+  all-gathered from every rank's host-local block, in rank order (numpy
+  leaves through a tensor on this rank's device, and back); any other
+  leaf is replicated as it is. At one rank the host-local batch is the
+  global one, so `global_batch_multihost(shard_batch(x, mesh), mesh)` is
+  x on every world size."""
+  _, size = world()
+  axis_size = mesh.shape[axis]
+
+  def gather(x):
+    if (not isinstance(x, (torch.Tensor, np.ndarray)) or x.ndim < 1
+        or (x.shape[0] * size) % axis_size):
+      return x
+    if isinstance(x, np.ndarray):
+      local = torch.as_tensor(x, device=mesh.device)
+      return all_gather_cat(local, mesh).cpu().numpy()
+    return all_gather_cat(x, mesh)
+
+  return _map(gather, tree)
+
+
 def device_count(device=None) -> int:
   """Devices a mesh spec may name: CUDA devices, or CPU cores for the
   CPU."""

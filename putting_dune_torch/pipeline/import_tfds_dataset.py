@@ -14,9 +14,10 @@ shards of serialized tf.train.Example protos, described by a
 tf.train.Example parses through the wire codec's ExampleCompat messages,
 .array_record shards through the riegeli reader
 (`io/riegeli_native.read_array_record`), .tfrecord shards through the
-TFRecord codec, and PNG image features through the port's own decoder
-(`io/png.py`; JPEG is not ported). Supported feature types: FeaturesDict,
-Tensor (encoding none/bytes/zlib), Image (png), ClassLabel, Scalar.
+TFRecord codec, and PNG and JPEG image features through the port's own
+decoders (`io/png.py`, `io/jpeg.py`, chosen by the bytes' signature).
+Supported feature types: FeaturesDict, Tensor (encoding none/bytes/zlib),
+Image (png, jpeg), ClassLabel, Scalar.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from typing import Dict, Iterator, List, Tuple
 import numpy as np
 
 from putting_dune_torch.io import datasets as datasets_lib
+from putting_dune_torch.io import jpeg
 from putting_dune_torch.io import png
 from putting_dune_torch.io import records as records_lib
 from putting_dune_torch.io import riegeli_native
@@ -123,11 +125,12 @@ def _resolve_shape(shape: Tuple[int, ...], count: int) -> Tuple[int, ...]:
 
 
 def _decode_image(payload: bytes, spec: FeatureSpec) -> np.ndarray:
-  img = png.imdecode(payload)
+  img = (jpeg.imdecode(payload) if jpeg.is_jpeg(payload)
+         else png.imdecode(payload))
   if img.ndim == 2:
     img = img[..., None]
   elif img.ndim == 3 and img.shape[-1] == 3:
-    # PNG decodes BGR; TFDS images are RGB on the wire.
+    # The decoders give BGR, as cv2 does; TFDS images are RGB on the wire.
     img = img[..., ::-1]
   return np.ascontiguousarray(img.astype(spec.dtype, copy=False))
 

@@ -12,9 +12,19 @@ the flax checkpoint both packages read (`LearnedRatePredictor.save`).
 With the default flags it writes, as the JAX CLI does, `metrics.npz`, one
 `{k}.png` per metric (--plot_metrics) and `avg_context_rates.png`, the
 final predictor's rates over a 300^2 grid of beams at the median context
-(--visualize_rates), drawn by plotting_utils without matplotlib. The five
-sklearn learner types (ROADMAP queue 1, IO: the sklearn learners) are not
-ported: they raise NotImplementedError before any training.
+(--visualize_rates), drawn by plotting_utils without matplotlib.
+
+The five classical learner types (--learner_type=sklearn_mlp, knn, gp,
+random_forest or svm) fit the port's own classifiers
+(`putting_dune_torch/classifiers/`, float64 on the device) with the JAX
+CLI's hyperparameters: a bootstrap ensemble of --num_models standardised
+classifiers on the context columns and the beam position, each scored on
+its out-of-bag rows, written as `{type}_{i}.npz` and `{type}_ensemble.npz`
+(the port's format, `classifiers.joblib_io`; the JAX CLI writes
+`.joblib`), `metrics.npz` with `train_accuracy` / `test_accuracy`, and the
+averaged `predict_proba[..., 1:]` as the rates of `avg_context_rates.png`.
+The models that draw (MLP, forest, SVC) are seeded from --seed, one
+`RandomState(seed).randint(2**31 - 1)` a model.
 """
 
 from __future__ import annotations
@@ -33,9 +43,17 @@ from putting_dune_torch import microscope_data as md
 from putting_dune_torch import plotting_utils
 from putting_dune_torch.io import records
 from putting_dune_torch.pipeline import trajectories_to_transitions as t2t
+from putting_dune_torch.classifiers import ensemble as ensemble_lib
+from putting_dune_torch.classifiers import gaussian_process
+from putting_dune_torch.classifiers import joblib_io
+from putting_dune_torch.classifiers import neighbors
+from putting_dune_torch.classifiers import neural_network
+from putting_dune_torch.classifiers import preprocessing
+from putting_dune_torch.classifiers import svm
 from putting_dune_torch.rate_learning import config as config_lib
 from putting_dune_torch.rate_learning import data_utils
 from putting_dune_torch.rate_learning import predictor as predictor_lib
+from putting_dune_torch.rate_learning import train as train_lib
 
 
 class LearnerType(str, enum.Enum):
@@ -50,6 +68,9 @@ class LearnerType(str, enum.Enum):
 
 _NETWORK_TYPES = (LearnerType.RATE_NETWORK,
                   LearnerType.CLASSIFICATION_NETWORK)
+# The classical learners that draw random numbers, and so take a seed.
+_SEEDED_TYPES = (LearnerType.SKLEARN_MLP, LearnerType.RANDOM_FOREST,
+                 LearnerType.SVM)
 
 
 @dataclasses.dataclass
@@ -288,22 +309,103 @@ def load_trajectories_from_records(path: str) -> List[md.Trajectory]:
   return out
 
 
-def check_args(args: Args) -> LearnerType:
-  """The learner type; raises NotImplementedError for what the port does
-  not have, before any data is read."""
-  learner_type = LearnerType(args.learner_type)
-  if learner_type not in _NETWORK_TYPES:
-    raise NotImplementedError(
-        f'learner_type={args.learner_type!r}: the sklearn learners are not '
-        'ported (ROADMAP queue 1, IO: the five sklearn learner types); use '
-        "'rate_network' or 'classification_network'.")
-  return learner_type
+# --- the classical learners ---------------------------------------------------
+
+
+def get_sklearn_classifier(learner_type: str, args: Args,
+                           standardize: bool = True, **kwargs):
+  """The port's classifier for a classical learner type, with the JAX
+  CLI's hyperparameters, on args.device unless kwargs give a device."""
+  device = kwargs.pop('device', args.device)
+  lt = LearnerType(learner_type)
+  if lt == LearnerType.SKLEARN_MLP:
+    model = neural_network.MLPClassifier(
+        alpha=args.weight_decay, max_iter=args.epochs, device=device,
+        **kwargs)
+  elif lt == LearnerType.KNN:
+    model = neighbors.KNeighborsClassifier(25, device=device, **kwargs)
+  elif lt == LearnerType.GP:
+    model = gaussian_process.GaussianProcessClassifier(device=device,
+                                                       **kwargs)
+  elif lt == LearnerType.RANDOM_FOREST:
+    model = ensemble_lib.RandomForestClassifier(
+        max_depth=5, n_estimators=10, device=device, **kwargs)
+  elif lt == LearnerType.SVM:
+    model = svm.SVC(gamma=2, C=1, probability=True, device=device, **kwargs)
+  else:
+    raise ValueError(f'Invalid learner type {learner_type}.')
+  if standardize:
+    model = preprocessing.make_pipeline(
+        preprocessing.StandardScaler(device=device), model)
+  return model
+
+
+def train_sklearn_classifier(model, training_data, testing_data):
+  """Fits on the context columns and scores both sets (accuracy)."""
+  model.fit(training_data['context'], training_data['next_state'])
+  train_acc = model.score(training_data['context'],
+                          training_data['next_state'])
+  test_acc = model.score(testing_data['context'], testing_data['next_state'])
+  return model, train_acc, test_acc
+
+
+def _classical(args: Args, learner_type: LearnerType, stacked):
+  """The bootstrap ensemble of classical classifiers; returns (models,
+  rate function)."""
+  train_sets, test_sets = train_lib.create_dataset_splits(
+      stacked, num_splits=args.num_models, seed=args.seed,
+      bootstrap=args.bootstrap, augment=args.augment_data,
+      test_fraction=args.val_frac)
+  seeds = np.random.RandomState(args.seed).randint(
+      np.iinfo(np.int32).max, size=args.num_models)
+  models, train_accs, test_accs = [], [], []
+  for i in range(args.num_models):
+    train_data = {k: v[i] for k, v in train_sets.items()}
+    test_data = {k: v[i] for k, v in test_sets.items()}
+    kwargs = ({'random_state': int(seeds[i])}
+              if learner_type in _SEEDED_TYPES else {})
+    model = get_sklearn_classifier(args.learner_type, args, **kwargs)
+    model, train_acc, test_acc = train_sklearn_classifier(
+        model, train_data, test_data)
+    print(f'{args.learner_type} {i}: train accuracy {train_acc:.4f}, test '
+          f'accuracy {test_acc:.4f} ({len(train_data["next_state"])} rows; '
+          f'fitted tensors on {model.step_estimators[0].mean_.device})',
+          flush=True)
+    joblib_io.save(model, os.path.join(
+        args.workdir, f'{args.learner_type}_{i}{joblib_io.SUFFIX}'))
+    models.append(model)
+    train_accs.append(train_acc)
+    test_accs.append(test_acc)
+  joblib_io.save(
+      ensemble_lib.VotingClassifier(
+          [(f'{args.learner_type}_{i}', m) for i, m in enumerate(models)]),
+      os.path.join(args.workdir,
+                   f'{args.learner_type}_ensemble{joblib_io.SUFFIX}'))
+  if args.log_metrics:
+    np.savez_compressed(os.path.join(args.workdir, 'metrics.npz'),
+                        train_accuracy=np.asarray(train_accs),
+                        test_accuracy=np.asarray(test_accs))
+  num_classes = int(stacked['next_state'].max()) + 1 if len(
+      stacked['next_state']) else 1
+
+  def rate_fn(x):
+    """The models' mean of P(next state = k), k >= 1. A model whose
+    bootstrap missed a class gives it probability 0 (the JAX CLI's mean
+    needs every model to have every class)."""
+    total = np.zeros((len(x), num_classes))
+    for m in models:
+      total[:, m.classes_] += m.predict_proba(x)
+    return total[:, 1:] / len(models)
+
+  return models, rate_fn
 
 
 def main(args: Args):
-  """Trains, distills and saves a rate predictor into args.workdir;
-  returns (stacked data, drop-reason counts, the predictor)."""
-  learner_type = check_args(args)
+  """Trains into args.workdir. For the networks: trains, distills and
+  saves a rate predictor; returns (stacked data, drop-reason counts, the
+  predictor). For the classical types: the bootstrap ensemble and its
+  files; returns (stacked data, drop-reason counts, the fitted models)."""
+  learner_type = LearnerType(args.learner_type)
   os.makedirs(args.workdir, exist_ok=True)
   trajectories = load_trajectories_from_records(args.source_path)
   transitions = t2t.trajectories_to_transitions(
@@ -329,6 +431,11 @@ def main(args: Args):
   if learner_type != LearnerType.RATE_NETWORK:
     # Constant dt turns the survival model into plain classification.
     stacked['dt'] = np.ones_like(stacked['dt'])
+
+  if learner_type not in _NETWORK_TYPES:
+    models, rate_fn = _classical(args, learner_type, stacked)
+    _visualize(args, stacked, datapoints, rate_fn)
+    return stacked, counts, models
 
   config = config_lib.RateLearningConfig(
       beam_units='angstroms',  # the pipeline canonicalises raw angstroms
@@ -373,14 +480,20 @@ def main(args: Args):
         context=torch.as_tensor(stacked['context'], device=dev))
     predictor.distill(augmented)
   predictor.save(args.workdir)
+  _visualize(args, stacked, datapoints,
+             lambda x: predictor.apply_model(x).cpu().numpy())
+  return stacked, counts, predictor
+
+
+def _visualize(args: Args, stacked, datapoints, rate_fn) -> None:
+  """avg_context_rates.png: rate_fn over a 300^2 grid of beams at the
+  median context (--visualize_rates)."""
   if args.visualize_rates and datapoints:
     context = stacked['context']
     plotting_utils.visualize_rates(
-        os.path.join(args.workdir, 'avg_context_rates.png'),
-        lambda x: predictor.apply_model(x).cpu().numpy(), grid_range=10.0,
-        num_points=300**2,
+        os.path.join(args.workdir, 'avg_context_rates.png'), rate_fn,
+        grid_range=10.0, num_points=300**2,
         fixed_context=np.median(context, axis=0) if context.size else None)
-  return stacked, counts, predictor
 
 
 def _parse_args(argv: Optional[Sequence[str]] = None) -> Args:

@@ -18,12 +18,18 @@ flax tree stacked on a model axis carries over without a transpose.
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional, Sequence
+from typing import Callable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+# The JAX package's aliases: parameters and batch-norm state are dicts of
+# arrays, and an apply function returns (outputs, new state).
+Params = dict
+State = dict
+ApplyFn = Callable[..., Tuple[torch.Tensor, State]]
 
 # flax.linen.BatchNorm(momentum=0.9): running = 0.9 running + 0.1 batch,
 # with the biased (E[x^2] - E[x]^2) batch variance and eps 1e-5.

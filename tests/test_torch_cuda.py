@@ -696,3 +696,43 @@ def test_rendered_eval_frame_round_trips_through_gif_and_png(cuda, tmp_path):
   np.testing.assert_array_equal(decoded.frames[0], frame)
   np.testing.assert_array_equal(png.imdecode(png.imencode(frame))[..., ::-1],
                                 frame)
+
+
+# --- the classical learners on the card -----------------------------------------
+
+LEARNERS = ('sklearn_mlp', 'knn', 'gp', 'random_forest', 'svm')
+CLASSIFIER_FIXTURES = (
+    __import__('pathlib').Path(__file__).resolve().parent / 'data'
+    / 'torch_classifiers')
+
+
+@pytest.mark.parametrize('learner', LEARNERS + ('ensemble',))
+def test_jax_learner_files_predict_on_the_card(cuda, learner):
+  from putting_dune_torch.classifiers import joblib_io
+
+  q = np.load(CLASSIFIER_FIXTURES / 'queries.npy')
+  model = joblib_io.load(str(CLASSIFIER_FIXTURES / f'{learner}.joblib'),
+                         device=cuda)
+  got = model.predict_proba_tensor(q)
+  assert got.device.type == 'cuda' and got.dtype == torch.float64
+  want = np.load(CLASSIFIER_FIXTURES / f'{learner}_proba.npy')
+  assert float(np.abs(got.cpu().numpy() - want).max()) <= 1e-9
+
+
+@pytest.mark.parametrize('learner', LEARNERS)
+def test_classical_learners_fit_on_the_card_as_on_the_cpu(cuda, learner):
+  from putting_dune_torch.pipeline import train_rate_learner as t_trl
+
+  rng = np.random.default_rng(0)
+  x = rng.normal(size=(300, 5)).astype(np.float32)
+  x[:, :2] = (0.1, 60.0)
+  y = (x[:, 3] > 0).astype(np.int32) + 2 * (x[:, 4] > 0.5)
+  q = rng.normal(size=(200, 5))
+  kwargs = {} if learner in ('knn', 'gp') else {'random_state': 0}
+  probs = []
+  for device in ('cpu', cuda):
+    args = t_trl.Args(source_path='', workdir='', epochs=100, device=device)
+    model = t_trl.get_sklearn_classifier(learner, args, **kwargs).fit(x, y)
+    probs.append(model.predict_proba(q))
+  tol = 1e-3 if learner == 'svm' else 1e-6
+  assert float(np.abs(probs[0] - probs[1]).max()) <= tol

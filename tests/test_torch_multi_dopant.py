@@ -102,7 +102,12 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                  'pipeline/import_tfds_dataset', 'pipeline/train_rate_learner',
                  'simulator_observers', 'atom_detection/data',
                  'plotting_utils', 'utils/raster', 'io/gif',
-                 'parallel/__init__', 'parallel/mesh'):
+                 'parallel/__init__', 'parallel/mesh', 'io/jpeg',
+                 'classifiers/__init__', 'classifiers/_base',
+                 'classifiers/preprocessing', 'classifiers/neighbors',
+                 'classifiers/tree', 'classifiers/ensemble',
+                 'classifiers/neural_network', 'classifiers/svm',
+                 'classifiers/gaussian_process', 'classifiers/joblib_io'):
     assert f'putting_dune_torch/{module}.py' in names
   for path in sources:
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -8,7 +8,9 @@ tolerance of tests/test_torch_image_alignment.py), `transitions_to_
 datapoints` and `stack_data` (element-wise equal, equal drop counts),
 `train_rate_learner.main` (2 models, 2 epochs; the written predictor read
 by both packages agrees within 1e-6, the tolerance of the port's
-checkpoint tests), `import_microscope_data`, `convert_riegeli`, the
+checkpoint tests; the five classical learner types on the same stacked
+data, the JAX CLI's ensemble file read by the port to its rates within
+1e-10), `import_microscope_data`, `convert_riegeli`, the
 artifact bundles and their cache rules, the agent logger and the
 simulator observer.
 """
@@ -34,6 +36,7 @@ from putting_dune_torch import registry as t_registry
 from putting_dune_torch import simulator as t_simulator
 from putting_dune_torch import simulator_observers as t_observers
 from putting_dune_torch import structures as t_structures
+from putting_dune_torch.classifiers import joblib_io as t_joblib_io
 from putting_dune_torch.image_alignment import inference as t_inference
 from putting_dune_torch.io import artifacts as t_artifacts
 from putting_dune_torch.io import records as t_records
@@ -232,16 +235,62 @@ def test_train_rate_learner_distills_to_one_model(monkeypatch, tmp_path,
                              atol=PREDICTOR_TOL)
 
 
-def test_train_rate_learner_refuses_what_is_not_ported(tmp_path, source):
-  base = dict(source_path=source, workdir=str(tmp_path / 'x'), device='cpu')
-  # The plots are ported now; the sklearn learners still wait, and are
-  # refused with the default plot flags too.
-  with pytest.raises(NotImplementedError, match='sklearn'):
-    t_trl.main(t_trl.Args(learner_type='random_forest', plot_metrics=False,
-                          visualize_rates=False, **base))
-  with pytest.raises(NotImplementedError, match='sklearn'):
-    t_trl.main(t_trl.Args(learner_type='knn', **base))
-  assert not os.path.exists(base['workdir'])
+@pytest.mark.parametrize('learner', ['knn', 'sklearn_mlp', 'gp',
+                                     'random_forest', 'svm'])
+def test_train_rate_learner_refuses_what_is_not_ported(monkeypatch, tmp_path,
+                                                      source, learner):
+  # The five classical learner types used to be refused; they are ported
+  # now (classifiers/), so both packages' CLIs train them on the same
+  # stacked data (2 models, no augmentation), write the same kinds of
+  # files, and the port reads the JAX CLI's ensemble file to its rates.
+  monkeypatch.setattr(sys, 'argv', ['cli'])
+  kw = dict(source_path=source, num_models=2, augment_data=False,
+            learner_type=learner, epochs=60, plot_metrics=False,
+            previous_controls_at_current_timestep=True)
+  j_dir, t_dir = str(tmp_path / 'j'), str(tmp_path / 't')
+  j_stacked = j_trl.main(j_trl.Args(workdir=j_dir, **kw))
+  t_stacked, counts, models = t_trl.main(t_trl.Args(workdir=t_dir,
+                                                    device='cpu', **kw))
+  assert counts['kept'] == len(t_stacked['next_state']) > 25
+  for key in ('next_state', 'context', 'dt', 'position'):
+    np.testing.assert_array_equal(t_stacked[key], j_stacked[key])
+  names = [f'{learner}_0', f'{learner}_1', f'{learner}_ensemble']
+  assert sorted(os.listdir(j_dir)) == sorted(
+      [f'{n}.joblib' for n in names] + ['avg_context_rates.png',
+                                        'metrics.npz'])
+  assert sorted(os.listdir(t_dir)) == sorted(
+      [f'{n}{t_joblib_io.SUFFIX}' for n in names] + [
+          'avg_context_rates.png', 'metrics.npz'])
+  j_metrics = np.load(os.path.join(j_dir, 'metrics.npz'))
+  t_metrics = np.load(os.path.join(t_dir, 'metrics.npz'))
+  for key in ('train_accuracy', 'test_accuracy'):
+    assert t_metrics[key].shape == j_metrics[key].shape == (2,)
+    if learner == 'knn':  # deterministic: the same accuracies
+      np.testing.assert_array_equal(t_metrics[key], j_metrics[key])
+    else:
+      assert ((t_metrics[key] >= 0) & (t_metrics[key] <= 1)).all()
+  assert len(models) == 2
+  # The port reads the JAX CLI's ensemble file: JAX's rate function (the
+  # mean of predict_proba[..., 1:] over the models) within 1e-10.
+  import joblib
+
+  j_models = [joblib.load(os.path.join(j_dir, f'{learner}_{i}.joblib'))
+              for i in range(2)]
+  ens = t_joblib_io.load(os.path.join(j_dir, f'{learner}_ensemble.joblib'),
+                         device='cpu')
+  x = np.random.default_rng(5).normal(size=(64, 5))
+  x[:, :3] = np.median(t_stacked['context'], axis=0)[:3]
+  want = np.mean([m.predict_proba(x)[..., 1:] for m in j_models], axis=0)
+  got = np.mean([m.predict_proba(x)[..., 1:] for m in ens.estimators_],
+                axis=0)
+  np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)
+  # The port's own ensemble file reads back to the models it wrote.
+  own = t_joblib_io.load(os.path.join(
+      t_dir, f'{learner}_ensemble{t_joblib_io.SUFFIX}'), device='cpu')
+  np.testing.assert_allclose(
+      own.predict_proba(x),
+      np.mean([m.predict_proba(x) for m in models], axis=0), rtol=0,
+      atol=1e-12)
 
 
 def test_classification_network_trains(tmp_path, source):

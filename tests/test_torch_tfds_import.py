@@ -1,5 +1,7 @@
 """TFDS dataset import: the port's PNG decoder and Example decoding.
 
+(JPEG image features: tests/test_torch_jpeg.py.)
+
 The PNG decoder (`io/png.py`) is bit-equal to `cv2.imdecode(...,
 IMREAD_UNCHANGED)` (cv2 is used on this side of the test only) for 8- and
 16-bit grey, RGB and RGBA, on cv2's own encodings and on images written
@@ -112,8 +114,15 @@ def test_png_decoder_reads_cv2_encodings(dtype, channels):
 
 
 def test_png_decoder_refuses_what_it_does_not_decode():
-  ok, jpeg = cv2.imencode('.jpg', np.zeros((8, 8, 3), np.uint8))
-  with pytest.raises(ValueError, match='JPEG.*ROADMAP queue 1, IO'):
+  # A JPEG image feature now decodes (through io/jpeg.py, cv2's pixels in
+  # TFDS's RGB order); png.imdecode itself still reads PNG only.
+  rgb = np.random.default_rng(4).integers(0, 256, (8, 8, 3), dtype=np.uint8)
+  ok, jpeg = cv2.imencode('.jpg', rgb)
+  want = cv2.imdecode(jpeg, cv2.IMREAD_UNCHANGED)[..., ::-1]
+  got = t_imp._decode_image(jpeg.tobytes(),
+                            t_imp.FeatureSpec('image', [8, 8, 3], 'uint8'))
+  np.testing.assert_array_equal(got, want)
+  with pytest.raises(ValueError, match='JPEG, not a PNG'):
     png.imdecode(jpeg.tobytes())
   with pytest.raises(ValueError, match='not a PNG'):
     png.imdecode(b'GIF89a....')

@@ -11,7 +11,8 @@ the toy env with replayed draws), 'rate' (the rate learner's model axis),
 'resume' (the graph-aligner trainer run three times, each rank in a
 workdir of its own: a first epoch, a rerun to two epochs that every rank
 resumes from rank 0's checkpoint, and a rerun that rank 1 alone asks to
-stop).
+stop) and 'batch' (`global_batch_multihost` of each rank's
+`shard_batch` block).
 """
 
 import os
@@ -139,6 +140,18 @@ def resume(rank, world, outdir):
              for k, v in state.model.state_dict().items()}}
 
 
+def batch(rank, world, outdir):
+  mesh = mesh_lib.make_mesh(device='cpu')
+  full = {'x': torch.arange(8 * 3, dtype=torch.float32).reshape(8, 3),
+          'rows': np.arange(8) * 10, 'odd': np.arange(5),
+          'scalar': torch.tensor(2.5)}
+  local = mesh_lib.shard_batch(full, mesh)
+  out = mesh_lib.global_batch_multihost(local, mesh)
+  return {'local_x': local['x'].numpy(), 'x': out['x'].numpy(),
+          'rows': out['rows'], 'odd': out['odd'],
+          'scalar': out['scalar'].numpy()}
+
+
 def main():
   scenario, rank, world, port, outdir = sys.argv[1:6]
   rank, world = int(rank), int(world)
@@ -147,7 +160,8 @@ def main():
   else:
     mesh_lib.initialize_distributed(f'localhost:{port}', world, rank,
                                     device='cpu')
-    out = {'ppo': ppo, 'rate': rate, 'graph': graph, 'resume': resume}[
+    out = {'ppo': ppo, 'rate': rate, 'graph': graph, 'resume': resume,
+           'batch': batch}[
         scenario](
         rank, world, outdir)
   np.savez(os.path.join(outdir, f'rank{rank}.npz'), **out)
