@@ -226,7 +226,24 @@ Phases (any failure exits non-zero before the final line):
       JPEGs (tests/data/torch_jpeg) decoded on the host with max |d| 0
       against cv2's recorded pixels, MB/s, and a TFDS shard of them
       through the import CLI;
-  24. a `kernels` JSON line; 25. the result JSON line, last.
+  24. TF SavedModel interop and the authenticated GCS download (no kernel
+      of its own): (a) the shipped detector (64..1024, 256^2), aligner
+      (64..512, 128^2 x 5), rate predictor and `230422_ppo_v3_2s` MLP
+      exported through the port (`io/tf_export.py`), reloaded on the card
+      and held against their native forwards in full float32: export and
+      load seconds, MB, the interpreter's forward ms beside the native ms,
+      max|d|; (b) SAVED_MODEL_SCENES noisy 256^2 scenes (`noise_chain` +
+      the CLAHE pair) through the loaded detector and a 128^2 x 5 stack of
+      `clahe_small` aligner frames through the loaded aligner, with their
+      launches counted, and those kernels held against their twins at
+      these shapes; (c) the committed JAX-made SavedModels
+      (tests/data/torch_saved_models) against JAX's recorded outputs;
+      (d) one episode of the host evaluator on `eval_ppo_v3_2s` through
+      `TfSavedModelAgent` on the exported policy, each action held to
+      EvalAgent's; (e) the authenticated download (`io/gcs.py`) against a
+      loopback token endpoint and media server in the process, with a
+      throwaway RSA key: ms to sign, for the grant and for the download;
+  25. a `kernels` JSON line; 26. the result JSON line, last.
 
 It imports nothing of JAX or of putting_dune_tpu (the shipped weights are
 read as data).
@@ -2832,6 +2849,320 @@ def _classical_learners(dev, smi, aligned_path, tmp) -> dict:
   return out
 
 
+# Phase 24: TF SavedModel interop and the authenticated GCS download.
+SAVED_MODEL_FIXTURES = os.path.join(ROOT, 'tests', 'data', 'torch_saved_models')
+# (rtol, atol) of the committed JAX fixtures against their recorded outputs:
+# the JAX test's own for the UNets, 1e-5 for the MLPs.
+SAVED_MODEL_TOLERANCES = {'mlp_policy': (1e-5, 1e-5),
+                          'rate_predictor': (1e-5, 1e-6),
+                          'atom_detector': (1e-3, 1e-4),
+                          'image_aligner': (1e-3, 1e-4)}
+# An export of a shipped model against its native forward on the card,
+# both in full float32: max|d| <= tol * (1 + max|native|).
+SAVED_MODEL_EXPORT_TOL = {'atom_detector': 1e-4, 'image_aligner': 1e-4,
+                          'rate_predictor': 1e-5, 'mlp_policy': 1e-5}
+SAVED_MODEL_SCENES = 4
+SAVED_MODEL_EPISODE_STEPS = 20
+GCS_OBJECT_MB = 8
+
+
+@contextlib.contextmanager
+def _environ(**values):
+  """Environment variables set (None: removed) while open."""
+  saved = {k: os.environ.get(k) for k in values}
+  try:
+    for k, v in values.items():
+      if v is None:
+        os.environ.pop(k, None)
+      else:
+        os.environ[k] = v
+    yield
+  finally:
+    for k, v in saved.items():
+      if v is None:
+        os.environ.pop(k, None)
+      else:
+        os.environ[k] = v
+
+
+def _dir_mb(path: str) -> float:
+  return sum(os.path.getsize(os.path.join(d, f))
+             for d, _, files in os.walk(path) for f in files) / 1e6
+
+
+def saved_model_interop(dev, smi, path_launches) -> dict:
+  """Phase 24 (see the module docstring); returns the numbers it read."""
+  import tempfile
+
+  with tempfile.TemporaryDirectory(prefix='smoke_saved_model_') as tmp:
+    return _saved_model_interop(dev, smi, path_launches, tmp)
+
+
+def _saved_model_interop(dev, smi, path_launches, tmp) -> dict:
+  import base64
+  import hashlib
+
+  import numpy as np
+  import torch
+
+  from putting_dune_torch import eval_lib
+  from putting_dune_torch import lattice as lattice_lib
+  from putting_dune_torch import microscope_agent
+  from putting_dune_torch import registry
+  from putting_dune_torch import run_helpers
+  from putting_dune_torch.agents import eval_agent
+  from putting_dune_torch.atom_detection import data as det_data
+  from putting_dune_torch.atom_detection import model as det_model
+  from putting_dune_torch.atom_detection import train as det_train
+  from putting_dune_torch.image_alignment import inference as alignment
+  from putting_dune_torch.image_alignment import model as align_model
+  from putting_dune_torch.image_alignment import train as align_train
+  from putting_dune_torch.io import gcs
+  from putting_dune_torch.io import stablehlo
+  from putting_dune_torch.io import tf_export
+  from putting_dune_torch.ops import _build
+  from putting_dune_torch.rate_learning import config as rl_config
+  from putting_dune_torch.rate_learning import predictor as predictor_lib
+
+  out = {}
+  weights = eval_agent.MODEL_WEIGHTS_DIR
+
+  # -- 24a. the shipped models exported at full width, reloaded on the card ---
+  detector = det_model.UNet(features=tuple(det_train.load_arch(os.path.join(
+      weights, 'atom_detector'))['features']))
+  detector.load_state_dict(det_model.params_from_flax(det_train.load_params(
+      os.path.join(weights, 'atom_detector'))))
+  aligner = align_model.from_flax(align_train.load_params(
+      os.path.join(weights, 'image_aligner')))
+  predictor = predictor_lib.LearnedRatePredictor(
+      config=rl_config.RateLearningConfig(beam_units='angstroms'), device=dev)
+  predictor.load(os.path.join(weights, 'rate_predictor'))
+  policy = eval_agent.load_policy(os.path.join(weights, '230422_ppo_v3_2s'),
+                                  dev)
+  # name: (native forward, input shape, input name, module to export; None:
+  # the predictor's own export_tf).
+  detector, aligner = detector.to(dev).eval(), aligner.to(dev).eval()
+  native = {
+      'atom_detector': (detector, (1, 256, 256, 1), 'image', detector),
+      'image_aligner': (aligner, (1, 128, 128, 5), 'image', aligner),
+      'rate_predictor': (predictor.apply_model, (1, predictor.context_dim),
+                         'beam_position', None),
+      'mlp_policy': (policy.eval(), (policy.obs_dim,), 'input', policy),
+  }
+  loaded = {}
+  gen = torch.Generator(device=dev).manual_seed(24)
+  for name, (module, shape, input_name, exported) in native.items():
+    path = os.path.join(tmp, name)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if exported is None:
+      predictor.export_tf(path)
+    else:
+      tf_export.export_tf_saved_model(exported, shape, path,
+                                      input_name=input_name)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = tf_export.load_tf_saved_model(path, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    loaded[name] = model
+    x = torch.randn(shape, generator=gen, device=dev)
+    with torch.no_grad(), stablehlo.full_float32():
+      want = module(x)
+    got = model(x)
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    with stablehlo.full_float32():
+      native_ms = time_ms(lambda m=module, x=x: m(x), repeats=10)
+    interp_ms = time_ms(lambda m=model, x=x: m(x), repeats=10)
+    mb = _dir_mb(path)
+    print(f'24a {name} {shape}: export {export_s:.2f} s, load {load_s:.2f} '
+          f's, {mb:.2f} MB; interpreter forward {interp_ms:.3f} ms beside '
+          f'the native {native_ms:.3f} ms (full float32, median of 10); '
+          f'max|d| {err:.3g} (bar {SAVED_MODEL_EXPORT_TOL[name]:g} x '
+          f'(1 + {scale:.3g})) on {smi}', flush=True)
+    check(err <= SAVED_MODEL_EXPORT_TOL[name] * (1 + scale),
+          f'24a: the exported {name} differs from its native forward')
+    out[name] = dict(export_s=export_s, load_s=load_s, mb=mb,
+                     interpreter_ms=interp_ms, native_ms=native_ms,
+                     max_abs_err=err)
+
+  # -- 24b. rendered scenes and aligner stacks through the loaded models ------
+  recorded = {}
+  _build.reset_launches()
+  with _recording_inputs(recorded):
+    lattice = lattice_lib.make_lattice(50, dev)
+    batch = det_data.sample_batch(gen, lattice, batch_size=SAVED_MODEL_SCENES,
+                                  image_size=256, noisy=True)
+    sequence, _ = microscope_agent.drifting_sequence(0, frames=6, device=dev)
+    frames = alignment.ImageAligner.from_checkpoint(device=dev)
+    stack = np.concatenate([frames.preprocess(o.image) for o in sequence[-5:]],
+                           axis=-1)
+  counted = dict(_build.LAUNCHES)
+  det_err = det_scale = 0.0
+  agree = []
+  for image in batch['image']:
+    x = image[None]
+    with torch.no_grad(), stablehlo.full_float32():
+      want = detector(x)
+    got = loaded['atom_detector'](x)
+    det_err = max(det_err, float((got - want).abs().max()))
+    det_scale = max(det_scale, float(want.abs().max()))
+    agree.append(float((got.argmax(-1) == want.argmax(-1)).float().mean()))
+  x = torch.as_tensor(stack, device=dev)[None]
+  with torch.no_grad(), stablehlo.full_float32():
+    want = aligner(x)
+  got = loaded['image_aligner'](x)
+  align_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+  align_scale = max(float(w.abs().max()) for w in want)
+  path_launches['saved_model_scenes'] = counted
+  print(f'24b {SAVED_MODEL_SCENES} noisy 256^2 scenes through the loaded '
+        f'detector: max|d| {det_err:.3g} against the native forward, argmax '
+        f'agreement {min(agree):.4f} at least; one 128^2 x 5 aligner stack '
+        f'(clahe_small frames): max|d| {align_err:.3g}; launches {counted}',
+        flush=True)
+  check(det_err <= SAVED_MODEL_EXPORT_TOL['atom_detector'] * (1 + det_scale),
+        '24b: detector logits differ')
+  check(min(agree) >= 0.999, '24b: detector classes differ')
+  check(align_err <= SAVED_MODEL_EXPORT_TOL['image_aligner'] * (
+      1 + align_scale), '24b: aligner outputs differ')
+  for kernel in ('noise_chain', 'clahe_hist_lut', 'clahe_remap',
+                 'clahe_small'):
+    check(counted[kernel] > 0, f'24b: {kernel} was not launched')
+  errs = {}
+  hold_gen = torch.Generator(device=dev).manual_seed(241)
+  args = _recorded(recorded, 'noise_chain',
+                   (SAVED_MODEL_SCENES, 256, 256), '24b')
+  errs['noise_chain_256'] = _hold_noise_chain(
+      dev, args, '24b on the scenes:', hold_gen)
+  errs['clahe_pair_256'] = _hold_clahe_pair(
+      _recorded(recorded, 'clahe_hist_lut', (SAVED_MODEL_SCENES, 256, 256),
+                '24b'), '24b clahe_hist_lut + clahe_remap on the scenes')
+  small = _recorded(recorded, 'clahe_small', (1, 128, 128), '24b')
+  errs['clahe_small_128'] = _hold_clahe_small(
+      small['image'], {k: small[k] for k in ('clip_limit', 'grid_size',
+                                             'nbins')},
+      '24b clahe_small (1, 128, 128) on an aligner frame')
+  out['scenes'] = dict(detector_max_abs_err=det_err,
+                       aligner_max_abs_err=align_err, holds=errs)
+
+  # -- 24c. the committed JAX-made SavedModels on the card ---------------------
+  for name, (rtol, atol) in SAVED_MODEL_TOLERANCES.items():
+    root = os.path.join(SAVED_MODEL_FIXTURES, name)
+    model = tf_export.load_tf_saved_model(os.path.join(root, 'saved_model'),
+                                          device=dev)
+    got = model(np.load(os.path.join(root, 'input.npy')))
+    got = got if isinstance(got, tuple) else (got,)
+    worst = 0.0
+    for i, g in enumerate(got):
+      want = np.load(os.path.join(root, f'output_{i}.npy'))
+      g = g.cpu().numpy()
+      check(bool(np.allclose(g, want, rtol=rtol, atol=atol)),
+            f'24c: the JAX {name} export differs from its recorded output')
+      worst = max(worst, float(np.abs(g - want).max()))
+    print(f'24c JAX-made {name} on the card: max|d| {worst:.3g} against '
+          f'JAX\'s recorded output (rtol {rtol:g}, atol {atol:g})',
+          flush=True)
+    out[f'jax_{name}'] = worst
+
+  # -- 24d. the host evaluator through TfSavedModelAgent ----------------------
+  experiment = registry.create_eval_experiment('eval_ppo_v3_2s')
+  tf_agent = eval_agent.TfSavedModelAgent(os.path.join(tmp, 'mlp_policy'),
+                                          device=dev)
+  native_agent = eval_agent.EvalAgent(policy)
+  diffs = []
+
+  class Paired:
+    """Acts with the SavedModel agent; holds each action to EvalAgent's."""
+
+    def step(self, time_step):
+      action = tf_agent.step(time_step)
+      diffs.append(float(np.abs(action - native_agent.step(time_step)).max()))
+      return action
+
+    def set_mode(self, mode):
+      tf_agent.set_mode(mode)
+      native_agent.set_mode(mode)
+
+  env = run_helpers.create_putting_dune_env(
+      0, experiment.get_adapters_and_goal, experiment.get_simulator_config,
+      simulator_step_limit=SAVED_MODEL_EPISODE_STEPS, device=dev)
+  t0 = time.perf_counter()
+  (result,) = eval_lib.evaluate(Paired(), env, [0])
+  episode_s = time.perf_counter() - t0
+  print(f'24d host evaluator, eval_ppo_v3_2s seed 0 through '
+        f'TfSavedModelAgent: {result.num_actions_taken} actions in '
+        f'{episode_s:.2f} s, each against EvalAgent\'s: max|d| '
+        f'{max(diffs):.3g} (bar 1e-5)', flush=True)
+  check(len(diffs) == result.num_actions_taken and diffs,
+        '24d: the evaluator took no action')
+  check(max(diffs) <= 1e-5, '24d: TfSavedModelAgent differs from EvalAgent')
+  out['episode'] = dict(actions=result.num_actions_taken,
+                        max_abs_err=max(diffs), seconds=episode_s)
+
+  # -- 24e. the authenticated GCS download against a loopback server ----------
+  # The tests' throwaway key: the card's machine has no crypto package.
+  with open(os.path.join(ROOT, 'tests', 'data', 'torch_gcs',
+                         'throwaway_rsa_key.pem')) as f:
+    pem = f.read()
+  payload = os.urandom(GCS_OBJECT_MB << 20)
+  sys.path.insert(0, os.path.join(ROOT, 'tests'))
+  import torch_gcs_server  # the tests' loopback token and storage server
+
+  storage = torch_gcs_server.LoopbackGoogle()
+  storage.objects[('smoke-bucket', 'models/blob.bin')] = payload
+  try:
+    info = {'type': 'service_account', 'private_key_id': 'smoke',
+            'private_key': pem, 'client_email': 'smoke@example.invalid',
+            'token_uri': f'{storage.url}/token'}
+    creds_path = os.path.join(tmp, 'service_account.json')
+    with open(creds_path, 'w') as f:
+      json.dump(info, f)
+    with _environ(GOOGLE_APPLICATION_CREDENTIALS=creds_path,
+                  API_ENDPOINT_OVERRIDE=storage.url,
+                  STORAGE_EMULATOR_HOST=None, NO_PROXY='127.0.0.1,localhost',
+                  http_proxy=None, https_proxy=None, HTTP_PROXY=None,
+                  HTTPS_PROXY=None, ALL_PROXY=None, all_proxy=None):
+      credentials = gcs.default_credentials()
+      t0 = time.perf_counter()
+      for _ in range(10):
+        assertion = credentials.assertion()
+      sign_ms = 1e3 * (time.perf_counter() - t0) / 10
+      signing_input, _, signature = assertion.rpartition(b'.')
+      s = int.from_bytes(base64.urlsafe_b64decode(
+          signature + b'=' * (-len(signature) % 4)), 'big')
+      em = pow(s, credentials.key.e, credentials.key.n).to_bytes(
+          credentials.key.size, 'big')
+      check(em.endswith(hashlib.sha256(signing_input).digest())
+            and em.startswith(b'\x00\x01\xff'), '24e: bad RS256 signature')
+      t0 = time.perf_counter()
+      token = credentials.token()
+      grant_ms = 1e3 * (time.perf_counter() - t0)
+      target = os.path.join(tmp, 'blob.bin')
+      t0 = time.perf_counter()
+      gcs.download('smoke-bucket', 'models/blob.bin', target,
+                   credentials=credentials)
+      download_ms = 1e3 * (time.perf_counter() - t0)
+  finally:
+    storage.close()
+  with open(target, 'rb') as f:
+    check(f.read() == payload, '24e: the downloaded bytes differ')
+  check(token == 'tok-sa', '24e: the grant gave no token')
+  check(storage.requests[-1][2].get('authorization') == 'Bearer tok-sa',
+        '24e: the media GET carried no Bearer token')
+  print(f'24e GCS download over loopback: RS256 JWT with an RSA-2048 key '
+        f'signed in {sign_ms:.3f} ms (mean of '
+        f'10), JWT-bearer grant {grant_ms:.2f} ms, {GCS_OBJECT_MB} MB media '
+        f'download with the Bearer token {download_ms:.2f} ms '
+        f'({GCS_OBJECT_MB / download_ms * 1e3:.1f} MB/s), bytes equal',
+        flush=True)
+  out['gcs'] = dict(sign_ms=sign_ms, grant_ms=grant_ms,
+                    download_ms=download_ms, mb=GCS_OBJECT_MB)
+  return out
+
+
 def main() -> None:
   import torch
 
@@ -3644,10 +3975,16 @@ def main() -> None:
     print(f'classical learners and JPEG summary ({time.perf_counter() - t0:.1f}'
           f' s): {json.dumps(summary)}', flush=True)
 
-  print(f'phases 1-23 in {time.perf_counter() - t_smoke:.1f} s on {smi}',
+  # -- 24. TF SavedModel interop and the authenticated GCS download -----------
+  t0 = time.perf_counter()
+  summary = saved_model_interop(dev, smi, path_launches)
+  print(f'saved model interop summary ({time.perf_counter() - t0:.1f} s): '
+        f'{json.dumps(summary)}', flush=True)
+
+  print(f'phases 1-24 in {time.perf_counter() - t_smoke:.1f} s on {smi}',
         flush=True)
 
-  # -- 24. kernels line --------------------------------------------------------
+  # -- 25. kernels line --------------------------------------------------------
   kernels = []
   for name, (ms, plain_ms, err, bound_ms, bound_by, source) in rows.items():
     by_path = {path: counts[name] for path, counts in path_launches.items()}

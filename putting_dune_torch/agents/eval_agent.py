@@ -254,6 +254,24 @@ def mean_policy(model: nn.Module):
   return policy
 
 
+class TfSavedModelAgent(agent_lib.Agent):
+  """A frozen policy exported as a TF SavedModel: `step` feeds the raw
+  observation to the SavedModel's `__call__` and returns the action as a
+  numpy array, as the JAX package's TfSavedModelAgent does. The file is
+  read and run without TensorFlow (`io/tf_export.py`) on `device`."""
+
+  def __init__(self, path: str, device=None):
+    from putting_dune_torch.io import tf_export
+
+    self._model = tf_export.load_tf_saved_model(path, device)
+
+  def step(self, time_step) -> np.ndarray:
+    return self._model(time_step.observation).cpu().numpy()
+
+  def set_mode(self, mode: agent_lib.AgentMode) -> None:
+    pass
+
+
 class EvalAgent(agent_lib.Agent):
   """A frozen policy module as a host agent: `step` acts on one dm_env
   timestep, `policy()` is the batched policy for the batched evaluator."""

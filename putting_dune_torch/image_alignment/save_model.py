@@ -8,7 +8,9 @@ with the JAX package's keys into --output_dir.
   python -m putting_dune_torch.image_alignment.save_model \
       --workdir=runs/align --output_dir=runs/align_artifact
 
---export_tf (a TF SavedModel) waits for the IO slice and exits 2.
+--export_tf also writes a TF SavedModel of the network at (1, image_size,
+image_size, num_frames) with input `image` into <output_dir>/tf_saved_model
+(`io/tf_export.py`; --device picks where it is traced, CUDA by default).
 """
 
 from __future__ import annotations
@@ -28,10 +30,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
   parser.add_argument('--features', type=int, nargs='+',
                       default=[32, 64, 128, 256])
   parser.add_argument('--export_tf', action='store_true')
+  parser.add_argument('--device', default=None)
   args = parser.parse_args(argv)
-  if args.export_tf:
-    parser.error('--export_tf: TF SavedModel export is not ported yet '
-                 '(ROADMAP queue 1, IO).')
 
   from putting_dune_torch.image_alignment import train as train_lib
   from putting_dune_torch.io import serialization
@@ -45,6 +45,19 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                'image_size': args.image_size,
                'num_frames': args.num_frames}, f)
   print(f'Saved native artifact to {args.output_dir}')
+
+  if args.export_tf:
+    from putting_dune_torch import device as device_lib
+    from putting_dune_torch.image_alignment import model as model_lib
+    from putting_dune_torch.io import tf_export
+
+    # (local, global), as the JAX CLI's exported function returns them.
+    module = model_lib.from_flax(params).to(
+        device_lib.resolve_device(args.device))
+    tf_export.export_tf_saved_model(
+        module, (1, args.image_size, args.image_size, args.num_frames),
+        os.path.join(args.output_dir, 'tf_saved_model'), input_name='image')
+    print('Exported TF SavedModel.')
 
 
 if __name__ == '__main__':

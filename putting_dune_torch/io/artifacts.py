@@ -13,10 +13,10 @@ the other's.
       --archive=atom_detector.zip --target_dir=/path/model_weights/
 
 `resolve_artifact` also fetches gs:// (through the public HTTP endpoint)
-and http(s):// bundles into a cache. The JAX package's fallback to the
-authenticated google-cloud-storage client is not ported (it needs
-`google.cloud`; ROADMAP queue 1, IO): a gs:// download the public endpoint
-refuses raises.
+and http(s):// bundles into a cache. A gs:// download the public endpoint
+refuses falls back, as in the JAX package, to the authenticated download
+(`io/gcs.py`: the JSON API over urllib with google-auth's credential
+order, where the JAX package uses google-cloud-storage).
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ import time
 import uuid
 import zipfile
 from typing import Dict
+
+from putting_dune_torch.io import gcs
 
 MANIFEST_NAME = 'MANIFEST.json'
 # The JAX package's format name: archives cross between the packages.
@@ -180,18 +182,29 @@ def resolve_artifact(
       try:
         urllib.request.urlretrieve(url, tmp)
       except Exception as e:
-        if os.path.exists(tmp):
-          os.remove(tmp)
-        private = (
-            ' Private gs:// buckets need the authenticated GCS download, '
-            'which the port does not have (ROADMAP queue 1, IO).'
-            if scheme == 'gs' else '')
-        raise RuntimeError(
-            f'Could not download {uri!r} ({e}).{private} In a zero-egress '
-            'environment, transfer the bundle by hand and pass its local '
-            'path (integrity is checked by the embedded sha256 manifest, '
-            'not the channel).'
-        ) from e
+        # Private gs:// buckets 403/404 through the anonymous endpoint:
+        # fall back to the authenticated download.
+        auth_ok, auth_err = False, None
+        if scheme == 'gs':
+          try:
+            gcs.download(parsed.netloc, parsed.path.lstrip('/'), tmp)
+            auth_ok = True
+          except Exception as ae:  # auth/permission/transport failures
+            auth_err = ae
+        if not auth_ok:
+          if os.path.exists(tmp):
+            os.remove(tmp)
+          detail = f'anonymous: {e}'
+          if auth_err is not None:
+            detail += f'; authenticated client: {auth_err}'
+          raise RuntimeError(
+              f'Could not download {uri!r} ({detail}). For private '
+              'buckets, pip install google-cloud-storage and '
+              'authenticate (GOOGLE_APPLICATION_CREDENTIALS). In a '
+              'zero-egress environment, transfer the bundle by hand and '
+              'pass its local path (integrity is checked by the embedded '
+              'sha256 manifest, not the channel).'
+          ) from e
       os.replace(tmp, archive)
   else:
     raise ValueError(

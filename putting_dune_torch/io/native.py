@@ -87,6 +87,8 @@ def load() -> ctypes.CDLL:
       lib.pd_tfrecord_read.argtypes = [
           ctypes.c_char_p, ctypes.c_char_p, c_u64_p, c_u64, ctypes.c_int]
       lib.pd_tfrecord_read.restype = ctypes.c_int
+      lib.pd_crc32c.argtypes = [ctypes.c_char_p, c_u64]
+      lib.pd_crc32c.restype = ctypes.c_uint32
       lib.pd_highwayhash64.argtypes = [
           ctypes.POINTER(c_u64 * 4), ctypes.c_char_p, c_u64]
       lib.pd_highwayhash64.restype = c_u64
@@ -103,6 +105,11 @@ def load() -> ctypes.CDLL:
       lib.pd_jpeg_decode.restype = ctypes.c_int
       _lib = lib
     return _lib
+
+
+def crc32c(data: bytes) -> int:
+  """CRC32C (Castagnoli) of `data`, unmasked."""
+  return int(load().pd_crc32c(bytes(data), len(data)))
 
 
 def highwayhash64(data: bytes, key) -> int:

@@ -1,0 +1,596 @@
+"""TF SavedModel export and load without TensorFlow (port of
+putting_dune_tpu/io/tf_export.py).
+
+`export_tf_saved_model(fn, input_shape, save_dir, input_name=)` writes
+what `jax2tf.convert` + `tf.saved_model.save` write for a one-input
+function: `saved_model.pb` whose `__call__` concrete function wraps one
+`XlaCallModule` (version 10) holding `fn` as a StableHLO portable
+artifact (`io/torch_to_stablehlo.py`, bytes by `io/mlir_bytecode.py`), its
+weights as constants; a `serving_default` signature whose outputs are
+`output_0`, ...; and `variables/` (a tensor bundle holding only the
+object graph, as TF writes for a model without variables). The module
+lists `platforms` ['CPU', 'CUDA'] and takes the platform index that more
+than one platform requires, so TF on a CPU and a GPU serving stack both
+run the file. Left out of what TF writes: the traced save and restore
+functions with their `saver_def`, `fingerprint.pb` and the
+`stripped_op_list`; a model without variables has nothing to save, and TF
+2.21 loads the file without them (`tf.saved_model.load`, and the C++
+loader that serving uses).
+
+`load_tf_saved_model(save_dir, device=)` reads such a file, or one the JAX
+package wrote, without TF: it walks the object graph to `__call__` and the
+signatures, follows `StatefulPartitionedCall` / `PartitionedCall` through
+the function library from the functions' arguments, and interprets
+`Identity`, `IdentityN`, `PreventGradient`, `StopGradient`, `NoOp`,
+`Const`, variable reads (values from `variables/`) and `XlaCallModule` (run by
+`io/stablehlo.py` on `device`). Any other TF op raises naming it: graphs
+of plain TF ops wait (ROADMAP queue 1). Unlike TF it applies no platform
+check: the port is no XLA backend, so it runs a module lowered for any
+platform, passing the index of the one that matches `device` (CUDA or
+CPU) where the module takes one.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from putting_dune_torch import device as device_lib
+from putting_dune_torch.io import mlir_bytecode as mb
+from putting_dune_torch.io import stablehlo
+from putting_dune_torch.io import tensor_bundle
+from putting_dune_torch.io import tensorproto
+from putting_dune_torch.io import torch_to_stablehlo
+from putting_dune_torch.proto import tf_wire as tw
+
+XLA_CALL_MODULE_VERSION = 10
+PLATFORMS = ('CPU', 'CUDA')
+# The versions TF 2.21's saver writes.
+GRAPH_PRODUCER, GRAPH_MIN_CONSUMER = 2474, 12
+_CONFIG_PROTO = (b'\n\x07\n\x03CPU\x10\x01\n\x07\n\x03GPU\x10\x002\x02J\x00'
+                 b'8\x01\x82\x01\x00\x92\x01\x02J\x00')
+_OBJECT_GRAPH_KEY = '_CHECKPOINTABLE_OBJECT_GRAPH'
+_PREVENT_GRADIENT = (b'The jax2tf-converted function does not support '
+                     b'gradients. Use `with_gradient` parameter to enable '
+                     b'gradients')
+
+
+class UnsupportedGraphError(NotImplementedError):
+  """A SavedModel graph the loader does not interpret."""
+
+
+# --- writing -----------------------------------------------------------------
+
+
+def _shape(shape) -> tw.TensorShapeProto:
+  return tw.TensorShapeProto(
+      dim=[tw.TensorShapeProtoDim(size=int(d)) for d in shape])
+
+
+def _shapes(*shapes) -> tw.AttrValue:
+  return tw.AttrValue(list=tw.AttrValueListValue(
+      shape=[_shape(s) for s in shapes]))
+
+
+def _types(n: int, dtype: int = tw.DT_FLOAT) -> tw.AttrValue:
+  return tw.AttrValue(list=tw.AttrValueListValue(type=[dtype] * n))
+
+
+def _node(name: str, op: str, inputs=(), device: str = '',
+          **attrs) -> tw.NodeDef:
+  node = tw.NodeDef(name=name, op=op, input=list(inputs), attr=attrs)
+  if device:
+    node.device = device
+  return node
+
+
+def _arg(name: str, dtype: int = tw.DT_FLOAT) -> tw.OpDefArgDef:
+  return tw.OpDefArgDef(name=name, type=dtype)
+
+
+def _arg_attr(index: int, shape, name: str) -> tw.FunctionDefArgAttrEntry:
+  entry = tw.FunctionDefArgAttrEntry(value=tw.FunctionDefArgAttrs(attr={
+      '_output_shapes': _shapes(shape),
+      '_user_specified_name': tw.AttrValue(s=name.encode())}))
+  if index:
+    entry.key = index
+  return entry
+
+
+def _function(name, inputs, outputs, nodes, ret, control, input_shapes,
+              arg_names) -> tw.FunctionDef:
+  return tw.FunctionDef(
+      signature=tw.OpDef(
+          name=name, input_arg=[_arg(n, d) for n, d in inputs],
+          output_arg=[_arg(n, d) for n, d in outputs], is_stateful=True,
+          control_output=[control]),
+      node_def=nodes, ret=ret, control_ret={control: control},
+      attr={'_construction_context': tw.AttrValue(s=b'kEagerRuntime'),
+            '_input_shapes': _shapes(*input_shapes)},
+      arg_attr=[_arg_attr(i, s, n)
+                for i, (s, n) in enumerate(zip(input_shapes, arg_names))])
+
+
+def _call(name: str, inputs, fn: str, n_in: int, n_out: int, out_shapes):
+  return _node(
+      name, 'StatefulPartitionedCall', inputs, Tin=_types(n_in),
+      Tout=_types(n_out),
+      _collective_manager_ids=tw.AttrValue(list=tw.AttrValueListValue()),
+      _output_shapes=_shapes(*out_shapes),
+      _read_only_resource_inputs=tw.AttrValue(list=tw.AttrValueListValue()),
+      config_proto=tw.AttrValue(s=_CONFIG_PROTO),
+      f=tw.AttrValue(func=tw.NameAttrList(name=fn)))
+
+
+def _converted_fn(name, input_name, input_shape, module_bytes, out_shapes):
+  n = len(out_shapes)
+  suffix = lambda i: '' if i == 0 else f'_{i}'
+  xla = _node(
+      'XlaCallModule', 'XlaCallModule', ['jax2tf_arg_0:output:0'],
+      Sout=_shapes(*out_shapes), Tin=_types(1), Tout=_types(n),
+      _output_shapes=_shapes(*out_shapes),
+      module=tw.AttrValue(s=module_bytes),
+      platforms=tw.AttrValue(list=tw.AttrValueListValue(
+          s=[p.encode() for p in PLATFORMS])),
+      use_shardy_partitioner=tw.AttrValue(b=True),
+      version=tw.AttrValue(i=XLA_CALL_MODULE_VERSION))
+  nodes = [_node('jax2tf_arg_0', 'Identity', [input_name],
+                 T=tw.AttrValue(type=tw.DT_FLOAT),
+                 _output_shapes=_shapes(input_shape)), xla]
+  for i, s in enumerate(out_shapes):
+    nodes.append(_node(f'PreventGradient{suffix(i)}', 'PreventGradient',
+                       [f'XlaCallModule:output:{i}'],
+                       T=tw.AttrValue(type=tw.DT_FLOAT),
+                       _output_shapes=_shapes(s),
+                       message=tw.AttrValue(s=_PREVENT_GRADIENT)))
+  for i, s in enumerate(out_shapes):
+    nodes.append(_node(f'jax2tf_out{suffix(i)}', 'Identity',
+                       [f'PreventGradient{suffix(i)}:output:0'],
+                       T=tw.AttrValue(type=tw.DT_FLOAT),
+                       _output_shapes=_shapes(s)))
+  nodes += _identities([f'jax2tf_out{suffix(i)}:output:0' for i in range(n)],
+                       out_shapes)
+  nodes.append(_node('NoOp', 'NoOp', ['^XlaCallModule'],
+                     _output_shapes=_shapes()))
+  ret = {f'identity{suffix(i)}': f'Identity{suffix(i)}:output:0'
+         for i in range(n)}
+  return _function(name, [(input_name, tw.DT_FLOAT)],
+                   [(k, tw.DT_FLOAT) for k in ret], nodes, ret,
+                   'XlaCallModule', [input_shape], [input_name])
+
+
+def _identities(sources, shapes, dtype=tw.DT_FLOAT) -> List[tw.NodeDef]:
+  return [_node('Identity' if i == 0 else f'Identity_{i}', 'Identity',
+                [src, '^NoOp'], T=tw.AttrValue(type=dtype),
+                _output_shapes=_shapes(s))
+          for i, (src, s) in enumerate(zip(sources, shapes))]
+
+
+def _signature_wrapper(name, converted, input_name, input_shape, out_shapes):
+  n = len(out_shapes)
+  nodes = [_call('StatefulPartitionedCall', [input_name], converted, 1, n,
+                 out_shapes)]
+  nodes += _identities([f'StatefulPartitionedCall:output:{i}'
+                        for i in range(n)], out_shapes)
+  nodes.append(_node('NoOp', 'NoOp', ['^StatefulPartitionedCall'],
+                     _output_shapes=_shapes()))
+  ret = {('identity' if i == 0 else f'identity_{i}'):
+         ('Identity' if i == 0 else f'Identity_{i}') + ':output:0'
+         for i in range(n)}
+  return _function(name, [(input_name, tw.DT_FLOAT)],
+                   [(k, tw.DT_FLOAT) for k in ret], nodes, ret,
+                   'StatefulPartitionedCall', [input_shape], [input_name])
+
+
+def _none() -> tw.StructuredValue:
+  return tw.StructuredValue(none_value=tw.NoneValue())
+
+
+def _strings(values) -> tw.StructuredValue:
+  return tw.StructuredValue(list_value=tw.ListValue(
+      values=[tw.StructuredValue(string_value=v) for v in values]))
+
+
+def _fullargspec(args, kwonlyargs) -> tw.StructuredValue:
+  values = [('args', _strings(args)), ('varargs', _none()),
+            ('varkw', _none()), ('defaults', _none()),
+            ('kwonlyargs', _strings(kwonlyargs)),
+            ('kwonlydefaults', _none()),
+            ('annotations', tw.StructuredValue(dict_value=tw.DictValue()))]
+  return tw.StructuredValue(named_tuple_value=tw.NamedTupleValue(
+      name='FullArgSpec',
+      values=[tw.PairValue(key=k, value=v) for k, v in values]))
+
+
+def _spec(name, shape) -> tw.StructuredValue:
+  return tw.StructuredValue(tensor_spec_value=tw.TensorSpecProto(
+      name=name, shape=_shape(shape), dtype=tw.DT_FLOAT))
+
+
+def _tuple(values) -> tw.StructuredValue:
+  return tw.StructuredValue(tuple_value=tw.TupleValue(values=list(values)))
+
+
+def _object_graph(converted, wrapper, input_name, input_shape, out_shapes,
+                  is_tuple) -> tw.SavedObjectGraph:
+  user = lambda identifier: tw.SavedUserObject(
+      identifier=identifier, version=tw.VersionDef(producer=1,
+                                                   min_consumer=1))
+  ref = lambda node_id, name: tw.ObjectReference(node_id=node_id,
+                                                 local_name=name)
+  call_spec = tw.FunctionSpec(
+      fullargspec=_fullargspec(['args_tf_0'], []),
+      input_signature=_tuple([_spec(input_name, input_shape)]))
+  nodes = [
+      tw.SavedObject(children=[ref(1, '__call__'), ref(2, 'signatures')],
+                     user_object=user('_generic_user_object')),
+      tw.SavedObject(children=[ref(3, 'trace_0')],
+                     dependencies=[ref(3, 'trace_0')],
+                     function=tw.SavedFunction(concrete_functions=[converted],
+                                               function_spec=call_spec)),
+      tw.SavedObject(children=[ref(4, 'serving_default')],
+                     user_object=user('signature_map')),
+      tw.SavedObject(bare_concrete_function=tw.SavedBareConcreteFunction(
+          concrete_function_name=converted, argument_keywords=[input_name],
+          allowed_positional_arguments=1, function_spec=tw.FunctionSpec(
+              fullargspec=_fullargspec(['args_tf_0'], []),
+              input_signature=_none()))),
+      tw.SavedObject(bare_concrete_function=tw.SavedBareConcreteFunction(
+          concrete_function_name=wrapper, argument_keywords=[input_name],
+          allowed_positional_arguments=1, function_spec=tw.FunctionSpec(
+              fullargspec=_fullargspec([], [input_name]),
+              input_signature=_none()))),
+  ]
+  if is_tuple:
+    outputs = _tuple(_spec(f'tensor_{i}', s) for i, s in enumerate(out_shapes))
+  else:
+    outputs = _spec('unknown', out_shapes[0])
+  concrete = {
+      converted: tw.SavedConcreteFunction(
+          canonicalized_input_signature=_tuple([
+              _tuple([_spec(input_name, input_shape)]),
+              tw.StructuredValue(dict_value=tw.DictValue())]),
+          output_signature=outputs),
+      wrapper: tw.SavedConcreteFunction(
+          canonicalized_input_signature=_tuple([
+              _tuple([]), tw.StructuredValue(dict_value=tw.DictValue(
+                  fields={input_name: _spec(input_name, input_shape)}))]),
+          output_signature=tw.StructuredValue(dict_value=tw.DictValue(
+              fields={f'output_{i}': _spec(f'output_{i}', s)
+                      for i, s in enumerate(out_shapes)}))),
+  }
+  return tw.SavedObjectGraph(nodes=nodes, concrete_functions=concrete)
+
+
+def _checkpoint_graph() -> bytes:
+  """The TrackableObjectGraph TF checkpoints for the five objects."""
+  ref = lambda node_id, name: tw.ObjectReference(node_id=node_id,
+                                                 local_name=name)
+  nodes = [tw.TrackableObject(children=[ref(1, '__call__'),
+                                        ref(2, 'signatures')]),
+           tw.TrackableObject(children=[ref(3, 'trace_0')]),
+           tw.TrackableObject(children=[ref(4, 'serving_default')]),
+           tw.TrackableObject(), tw.TrackableObject()]
+  return tw.TrackableObjectGraph(nodes=nodes).SerializeToString()
+
+
+def write_saved_model(module_bytes: bytes, input_shape, out_shapes,
+                      save_dir: str, *, input_name: str = 'input',
+                      is_tuple: bool = False) -> None:
+  """Writes `saved_model.pb` and `variables/` around a portable artifact
+  whose main takes the platform index and one float32 input."""
+  n = len(out_shapes)
+  converted = '__inference_converted_fun_tf_1'
+  wrapper = '__inference_signature_wrapper_2'
+  placeholder = f'serving_default_{input_name}'
+  graph = tw.GraphDef(
+      node=[
+          _node(placeholder, 'Placeholder',
+                _output_shapes=_shapes(input_shape),
+                dtype=tw.AttrValue(type=tw.DT_FLOAT),
+                shape=tw.AttrValue(shape=_shape(input_shape))),
+          _call('StatefulPartitionedCall', [placeholder], wrapper, 1, n,
+                out_shapes),
+          _node('NoOp', 'NoOp'),
+      ],
+      library=tw.FunctionDefLibrary(function=[
+          _converted_fn(converted, input_name, input_shape, module_bytes,
+                        out_shapes),
+          _signature_wrapper(wrapper, converted, input_name, input_shape,
+                             out_shapes)]),
+      versions=tw.VersionDef(producer=GRAPH_PRODUCER,
+                             min_consumer=GRAPH_MIN_CONSUMER))
+  signature = tw.SignatureDef(
+      inputs={input_name: tw.TensorInfo(name=f'{placeholder}:0',
+                                        dtype=tw.DT_FLOAT,
+                                        tensor_shape=_shape(input_shape))},
+      outputs={f'output_{i}': tw.TensorInfo(
+          name=f'StatefulPartitionedCall:{i}', dtype=tw.DT_FLOAT,
+          tensor_shape=_shape(s)) for i, s in enumerate(out_shapes)},
+      method_name='tensorflow/serving/predict')
+  init = tw.SignatureDef(outputs={'__saved_model_init_op': tw.TensorInfo(
+      name='NoOp', tensor_shape=tw.TensorShapeProto(unknown_rank=True))})
+  meta = tw.MetaGraphDef(
+      meta_info_def=tw.MetaInfoDef(tags=['serve'],
+                                   stripped_default_attrs=True),
+      graph_def=graph,
+      collection_def={'saved_model_main_op': tw.CollectionDef(
+          node_list=tw.CollectionDefNodeList(value=['NoOp']))},
+      signature_def={'__saved_model_init_op': init,
+                     'serving_default': signature},
+      object_graph_def=_object_graph(converted, wrapper, input_name,
+                                     input_shape, out_shapes, is_tuple))
+  os.makedirs(os.path.join(save_dir, 'variables'), exist_ok=True)
+  with open(os.path.join(save_dir, 'saved_model.pb'), 'wb') as f:
+    f.write(tw.SavedModel(saved_model_schema_version=1,
+                          meta_graphs=[meta]).SerializeToString())
+  tensor_bundle.write_bundle(
+      os.path.join(save_dir, 'variables', 'variables'),
+      {_OBJECT_GRAPH_KEY: _checkpoint_graph()})
+
+
+def export_tf_saved_model(
+    fn: Callable,
+    input_shape: Sequence[int],
+    save_dir: str,
+    *,
+    input_name: str = 'input',
+    with_gradient: bool = False,
+) -> None:
+  """Exports `fn` (a torch module or function of one float32 tensor) at
+  `input_shape` as a TF SavedModel. It is traced on the device its
+  parameters are on (the CPU for a function without any)."""
+  if with_gradient:
+    raise NotImplementedError(
+        'with_gradient=True (a custom gradient in the SavedModel) is not '
+        'ported; see ROADMAP queue 1')
+  input_shape = tuple(int(d) for d in input_shape)
+  device = torch.device('cpu')
+  if isinstance(fn, torch.nn.Module):
+    tensor = next(iter(fn.parameters()), None)
+    if tensor is None:
+      tensor = next(iter(fn.buffers()), None)
+    if tensor is not None:
+      device = tensor.device
+  module, out_shapes, is_tuple = torch_to_stablehlo.export(
+      fn, input_shape, device)
+  write_saved_model(mb.write_module(module), input_shape, out_shapes,
+                    save_dir, input_name=input_name, is_tuple=is_tuple)
+
+
+# --- loading -----------------------------------------------------------------
+
+
+def _tensor_value(proto: tw.TensorProto):
+  if proto.dtype == tw.DT_STRING:
+    shape = tuple(int(d.size) for d in proto.tensor_shape.dim)
+    return np.asarray(list(proto.string_val), dtype=object).reshape(shape)
+  return tensorproto.tensor_proto_to_ndarray(proto)
+
+
+class _GraphFunction:
+  """A FunctionDef of the library, interpreted on demand."""
+
+  def __init__(self, loader: 'LoadedSavedModel', fdef: tw.FunctionDef):
+    self.loader = loader
+    self.fdef = fdef
+    self.inputs = [a.name for a in fdef.signature.input_arg]
+    self.outputs = [a.name for a in fdef.signature.output_arg]
+    self.nodes = {n.name: n for n in fdef.node_def}
+    # Each XlaCallModule node's program, built at its first call.
+    self.programs: Dict[str, stablehlo.Program] = {}
+
+  def __call__(self, args: Sequence) -> List:
+    values: Dict[str, list] = {name: [a] for name, a in zip(self.inputs,
+                                                              args)}
+    return [self._resolve(self.fdef.ret[name], values)
+            for name in self.outputs]
+
+  def _resolve(self, ref: str, values: Dict[str, list]):
+    if ref in values:
+      return values[ref][0]
+    parts = ref.split(':')
+    name = parts[0]
+    if name not in values:
+      values[name] = self._run(self.nodes[name], values)
+    outs = values[name]
+    if len(parts) == 1:
+      return outs[0]
+    return outs[int(parts[-1])]
+
+  def _run(self, node: tw.NodeDef, values) -> list:
+    inputs = [self._resolve(i, values) for i in node.input
+              if not i.startswith('^')]
+    return self.loader.run_op(node, inputs, self)
+
+
+class _Function:
+  """A callable concrete function: positional and keyword inputs, the
+  captured variables appended, the outputs in its output structure."""
+
+  def __init__(self, loader, name: str, captured: Sequence[torch.Tensor],
+               structure: tw.StructuredValue, input_names: Sequence[str]):
+    self._loader = loader
+    self._name = name
+    self._captured = list(captured)
+    self._structure = structure
+    self._input_names = list(input_names)
+
+  def __call__(self, *args, **kwargs):
+    args = list(args)
+    for name in self._input_names[len(args):]:
+      if name not in kwargs:
+        raise TypeError(f'missing input {name!r}')
+      args.append(kwargs.pop(name))
+    if kwargs:
+      raise TypeError(f'unexpected inputs {sorted(kwargs)}')
+    tensors = [self._loader.to_device(a) for a in args]
+    with torch.no_grad():
+      flat = self._loader.call_function(self._name,
+                                        tensors + self._captured)
+    return _pack(self._structure, list(flat))
+
+
+def _pack(structure: tw.StructuredValue, flat: list):
+  kind = structure.ListFields()[0][0] if structure.ListFields() else None
+  if kind == 'tensor_spec_value':
+    return flat.pop(0)
+  if kind in ('tuple_value', 'list_value'):
+    values = getattr(structure, kind).values
+    out = [_pack(v, flat) for v in values]
+    return tuple(out) if kind == 'tuple_value' else out
+  if kind == 'dict_value':
+    fields = structure.dict_value.fields
+    return {k: _pack(fields[k], flat) for k in sorted(fields)}
+  if kind == 'none_value' or kind is None:
+    return None
+  raise UnsupportedGraphError(f'an output structure of kind {kind}')
+
+
+class LoadedSavedModel:
+  """A SavedModel loaded without TF: call it as its `__call__`; its
+  `signatures` map names to functions returning {output key: tensor}."""
+
+  def __init__(self, save_dir: str, device):
+    self.device = device_lib.resolve_device(device)
+    with open(os.path.join(save_dir, 'saved_model.pb'), 'rb') as f:
+      saved = tw.SavedModel.FromString(f.read())
+    metas = [m for m in saved.meta_graphs if 'serve' in m.meta_info_def.tags]
+    if not metas:
+      raise UnsupportedGraphError(f'{save_dir}: no meta graph tagged serve')
+    meta = metas[0]
+    self._library = {f.signature.name: f
+                     for f in meta.graph_def.library.function}
+    self._functions: Dict[str, _GraphFunction] = {}
+    graph = meta.object_graph_def
+    self._nodes = graph.nodes
+    self._concrete = graph.concrete_functions
+    self._variables = self._read_variables(save_dir)
+    root = self._nodes[0]
+    children = {c.local_name: c.node_id for c in root.children}
+    self._call = None
+    if '__call__' in children:
+      self._call = self._callable(children['__call__'])
+    self.signatures = {}
+    if 'signatures' in children:
+      for c in self._nodes[children['signatures']].children:
+        self.signatures[c.local_name] = self._callable(c.node_id)
+
+  def _read_variables(self, save_dir: str) -> Dict[int, torch.Tensor]:
+    prefix = os.path.join(save_dir, 'variables', 'variables')
+    if not os.path.exists(f'{prefix}.index'):
+      return {}
+    _, tensors = tensor_bundle.read_bundle(prefix)
+    graph_bytes = tensors.get(_OBJECT_GRAPH_KEY)
+    if not graph_bytes:
+      return {}
+    graph = tw.TrackableObjectGraph.FromString(graph_bytes)
+    out = {}
+    for node_id, node in enumerate(graph.nodes):
+      for attr in node.attributes:
+        if attr.name == 'VARIABLE_VALUE':
+          value = tensors[attr.checkpoint_key]
+          if not isinstance(value, np.ndarray):
+            raise UnsupportedGraphError('a string variable')
+          out[node_id] = torch.as_tensor(value).to(self.device)
+    return out
+
+  def _callable(self, node_id: int) -> _Function:
+    node = self._nodes[node_id]
+    if node.HasField('function'):
+      names = list(node.function.concrete_functions)
+      if len(names) != 1:
+        raise UnsupportedGraphError(
+            f'a function with {len(names)} concrete functions')
+      name = names[0]
+    elif node.HasField('bare_concrete_function'):
+      name = node.bare_concrete_function.concrete_function_name
+    else:
+      raise UnsupportedGraphError(f'object {node_id} is not a function')
+    concrete = self._concrete[name]
+    captured = []
+    for bound in concrete.bound_inputs:
+      if bound not in self._variables:
+        raise UnsupportedGraphError(
+            f'{name} captures object {bound}, which is no variable with a '
+            'value in variables/')
+      captured.append(self._variables[bound])
+    signature = self._library[name].signature
+    n_user = len(signature.input_arg) - len(captured)
+    names = [a.name for a in signature.input_arg[:n_user]]
+    return _Function(self, name, captured, concrete.output_signature, names)
+
+  def __call__(self, *args, **kwargs):
+    if self._call is None:
+      raise TypeError('the SavedModel has no __call__')
+    return self._call(*args, **kwargs)
+
+  def to_device(self, x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+      return x.to(self.device)
+    return torch.as_tensor(np.asarray(x), device=self.device)
+
+  def call_function(self, name: str, args: Sequence) -> List:
+    if name not in self._functions:
+      if name not in self._library:
+        raise UnsupportedGraphError(f'no function {name!r} in the library')
+      self._functions[name] = _GraphFunction(self, self._library[name])
+    return self._functions[name](args)
+
+  def run_op(self, node: tw.NodeDef, inputs: list,
+             fn: _GraphFunction) -> list:
+    op = node.op
+    if op in ('Identity', 'PreventGradient', 'StopGradient'):
+      return [inputs[0]]
+    if op == 'IdentityN':
+      return list(inputs)
+    if op == 'NoOp':
+      return []
+    if op == 'Const':
+      value = _tensor_value(node.attr['value'].tensor)
+      if value.dtype == object:
+        return [value]
+      return [torch.as_tensor(value, device=self.device)]
+    if op == 'ReadVariableOp':  # the captured variable's value itself
+      return [inputs[0]]
+    if op in ('StatefulPartitionedCall', 'PartitionedCall'):
+      return self.call_function(node.attr['f'].func.name, inputs)
+    if op == 'XlaCallModule':
+      return self._xla_call_module(node, inputs, fn)
+    raise UnsupportedGraphError(
+        f'TF op {op} (node {node.name}) is not interpreted: graphs of plain '
+        'TF ops wait; see ROADMAP queue 1')
+
+  def _xla_call_module(self, node, inputs, fn: _GraphFunction) -> list:
+    attr = node.attr
+    version = attr['version'].i
+    if version != XLA_CALL_MODULE_VERSION:
+      raise UnsupportedGraphError(
+          f'XlaCallModule version {version} (this loader runs version '
+          f'{XLA_CALL_MODULE_VERSION}); see ROADMAP queue 1')
+    none = tw.AttrValue()
+    if attr.get('dim_args_spec', none).list.s:
+      raise UnsupportedGraphError('XlaCallModule with dim_args_spec')
+    if attr.get('has_token_input_output', none).b:
+      raise UnsupportedGraphError('XlaCallModule with tokens')
+    program = fn.programs.get(node.name)
+    if program is None:
+      program = fn.programs[node.name] = stablehlo.load(attr['module'].s,
+                                                        self.device)
+    platforms = [p.decode() for p in attr.get('platforms', none).list.s]
+    args = list(inputs)
+    if len(platforms) > 1:
+      wanted = 'CUDA' if self.device.type == 'cuda' else 'CPU'
+      index = platforms.index(wanted) if wanted in platforms else 0
+      args.insert(0, torch.tensor(index, dtype=torch.int32,
+                                  device=self.device))
+    return list(program(*args))
+
+
+def load_tf_saved_model(save_dir: str, device=None) -> LoadedSavedModel:
+  """Loads a SavedModel exported by export_tf_saved_model (or by the JAX
+  package's) on `device` (CUDA unless asked otherwise)."""
+  return LoadedSavedModel(save_dir, device)

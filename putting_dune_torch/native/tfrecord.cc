@@ -157,4 +157,7 @@ int pd_tfrecord_read(const char* path, uint8_t* buf, uint64_t* offsets,
   return 0;
 }
 
+// CRC32C (unmasked) of data[0:n]: the checksums of TF's tensor bundles.
+uint32_t pd_crc32c(const uint8_t* data, uint64_t n) { return Crc32c(data, n); }
+
 }  // extern "C"

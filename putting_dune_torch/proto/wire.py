@@ -8,7 +8,9 @@ engine encodes and decodes them on the protobuf wire:
   * varints; `int32` / `int64` negatives as 10-byte two's complement;
     `bool`; `uint32` / `uint64`;
   * `float` as fixed32 (a value is rounded to float32 when it is set, as
-    protobuf stores it) and `double` as fixed64;
+    protobuf stores it) and `double` as fixed64; `fixed32` / `fixed64`
+    unsigned integers and zigzagged `sint64` varints (for TensorFlow's
+    messages, `proto/tf_wire.py`);
   * length-delimited `string`, `bytes` and submessages;
   * proto2 `optional` presence: a field set to its default is present and
     written, an unset one is neither (`HasField`);
@@ -43,15 +45,18 @@ class DecodeError(ValueError):
 # Field types.
 INT32, INT64, UINT32, UINT64 = 'int32', 'int64', 'uint32', 'uint64'
 BOOL, FLOAT, DOUBLE = 'bool', 'float', 'double'
+FIXED32, FIXED64, SINT64 = 'fixed32', 'fixed64', 'sint64'
 STRING, BYTES, MESSAGE = 'string', 'bytes', 'message'
 
-_VARINT_TYPES = (INT32, INT64, UINT32, UINT64, BOOL)
+_VARINT_TYPES = (INT32, INT64, UINT32, UINT64, BOOL, SINT64)
 _WT_VARINT, _WT_FIXED64, _WT_DELIMITED, _WT_START_GROUP, _WT_END_GROUP, \
     _WT_FIXED32 = 0, 1, 2, 3, 4, 5
 _WIRE_TYPE = {INT32: 0, INT64: 0, UINT32: 0, UINT64: 0, BOOL: 0,
-              FLOAT: 5, DOUBLE: 1, STRING: 2, BYTES: 2, MESSAGE: 2}
+              FLOAT: 5, DOUBLE: 1, STRING: 2, BYTES: 2, MESSAGE: 2,
+              FIXED32: 5, FIXED64: 1, SINT64: 0}
 _DEFAULTS = {INT32: 0, INT64: 0, UINT32: 0, UINT64: 0, BOOL: False,
-             FLOAT: 0.0, DOUBLE: 0.0, STRING: '', BYTES: b''}
+             FLOAT: 0.0, DOUBLE: 0.0, STRING: '', BYTES: b'',
+             FIXED32: 0, FIXED64: 0, SINT64: 0}
 _M64 = (1 << 64) - 1
 
 
@@ -106,7 +111,9 @@ def _check_int(kind: str, value) -> int:
     raise TypeError(f'{kind} field takes an integer, got {value!r}')
   value = int(value)
   lo, hi = {INT32: (-2**31, 2**31 - 1), INT64: (-2**63, 2**63 - 1),
-            UINT32: (0, 2**32 - 1), UINT64: (0, 2**64 - 1)}[kind]
+            SINT64: (-2**63, 2**63 - 1), UINT32: (0, 2**32 - 1),
+            UINT64: (0, 2**64 - 1), FIXED32: (0, 2**32 - 1),
+            FIXED64: (0, 2**64 - 1)}[kind]
   if not lo <= value <= hi:
     raise ValueError(f'value {value} out of range for {kind}')
   return value
@@ -147,37 +154,40 @@ def _from_varint(kind: str, value: int):
     return value & 0xFFFFFFFF
   if kind == BOOL:
     return value != 0
+  if kind == SINT64:
+    return (value >> 1) ^ -(value & 1)
   return value
 
 
+# struct formats of the fixed-width kinds.
+_FIXED = {FLOAT: 'f', DOUBLE: 'd', FIXED32: 'I', FIXED64: 'Q'}
+
+
 def _encode_scalar(kind: str, value) -> bytes:
+  if kind == SINT64:
+    value = int(value)
+    return encode_varint((value << 1) ^ (value >> 63))
   if kind in _VARINT_TYPES:
     return encode_varint(int(value))
-  if kind == FLOAT:
-    return struct.pack('<f', value)
-  if kind == DOUBLE:
-    return struct.pack('<d', value)
+  if kind in _FIXED:
+    return struct.pack('<' + _FIXED[kind], value)
   data = value.encode('utf-8') if kind == STRING else value
   return encode_varint(len(data)) + data
 
 
 def _encode_packed(kind: str, values) -> bytes:
-  if kind == FLOAT:
-    return struct.pack(f'<{len(values)}f', *values)
-  if kind == DOUBLE:
-    return struct.pack(f'<{len(values)}d', *values)
-  return b''.join(encode_varint(int(v)) for v in values)
+  if kind in _FIXED:
+    return struct.pack(f'<{len(values)}{_FIXED[kind]}', *values)
+  return b''.join(_encode_scalar(kind, v) for v in values)
 
 
 def _decode_packed(kind: str, data) -> list:
-  if kind == FLOAT:
-    if len(data) % 4:
-      raise DecodeError('packed float field of a length not a multiple of 4')
-    return list(struct.unpack(f'<{len(data) // 4}f', data))
-  if kind == DOUBLE:
-    if len(data) % 8:
-      raise DecodeError('packed double field of a length not a multiple of 8')
-    return list(struct.unpack(f'<{len(data) // 8}d', data))
+  if kind in _FIXED:
+    size = struct.calcsize(_FIXED[kind])
+    if len(data) % size:
+      raise DecodeError(f'packed {kind} field of a length not a multiple '
+                        f'of {size}')
+    return list(struct.unpack(f'<{len(data) // size}{_FIXED[kind]}', data))
   out, pos = [], 0
   while pos < len(data):
     value, pos = read_varint(data, pos)
@@ -495,12 +505,12 @@ class Message:
       elif wire_type == _WT_FIXED32:
         if pos + 4 > end:
           raise DecodeError('truncated fixed32')
-        value = struct.unpack_from('<f', data, pos)[0]
+        value = struct.unpack_from('<' + _FIXED.get(kind, 'f'), data, pos)[0]
         pos += 4
       else:
         if pos + 8 > end:
           raise DecodeError('truncated fixed64')
-        value = struct.unpack_from('<d', data, pos)[0]
+        value = struct.unpack_from('<' + _FIXED.get(kind, 'd'), data, pos)[0]
         pos += 8
       if field.repeated:
         values.setdefault(name, []).append(value)
@@ -536,10 +546,12 @@ class Message:
           raw, pos = read_varint(data, pos)
           item = _from_varint(value_kind, raw)
         elif wire_type == _WT_FIXED32:
-          item = struct.unpack_from('<f', data, pos)[0]
+          item = struct.unpack_from('<' + _FIXED.get(value_kind, 'f'), data,
+                                    pos)[0]
           pos += 4
         else:
-          item = struct.unpack_from('<d', data, pos)[0]
+          item = struct.unpack_from('<' + _FIXED.get(value_kind, 'd'), data,
+                                    pos)[0]
           pos += 8
       else:
         pos = _skip_field(data, pos, wire_type, number)

@@ -210,6 +210,23 @@ class LearnedRatePredictor:
     with open(os.path.join(save_dir, 'config.json'), 'w') as f:
       json.dump(config_dict, f)
 
+  def export_tf(self, save_dir: str, fixed_context=None) -> None:
+    """Exports the ensemble-mean predictor as a TF SavedModel (input
+    `beam_position` of shape (1, input_dim)), as the JAX package's
+    `export_tf` does; `fixed_context`, if given, is prepended to every
+    input row."""
+    from putting_dune_torch.io import tf_export
+
+    if fixed_context is None:
+      input_dim = self.context_dim
+    else:
+      fixed_context = torch.as_tensor(
+          np.asarray(fixed_context, np.float32), device=self.device)
+      input_dim = self.context_dim - fixed_context.shape[0]
+    tf_export.export_tf_saved_model(
+        _EnsembleMean(self.model.eval(), fixed_context), (1, input_dim),
+        save_dir, input_name='beam_position')
+
   def load(self, load_dir: str, step: int = 0) -> None:
     """Reads what `save` (of either package) wrote. The stored config and
     `num_models_current` win over this instance's, and the input width is
@@ -236,6 +253,25 @@ class LearnedRatePredictor:
         stats = serialization.unpackb(f.read())
     self.model.load_flax_trees(params, stats or self.model.flax_trees()[1])
     self.model.eval()
+
+
+class _EnsembleMean(torch.nn.Module):
+  """The exported function of `export_tf`: `fixed_context` prepended to
+  every row, then the ensemble mean of the per-neighbour rates."""
+
+  def __init__(self, model: torch.nn.Module, fixed_context):
+    super().__init__()
+    self.model = model
+    self.fixed = fixed_context is not None
+    if self.fixed:
+      self.register_buffer('fixed_context', fixed_context)
+
+  def forward(self, context: torch.Tensor) -> torch.Tensor:
+    if self.fixed:
+      tiled = self.fixed_context[None].expand(context.shape[0], -1)
+      context = torch.cat([tiled, context], dim=-1)
+    out = self.model(context, is_training=False)
+    return losses.predicted_rates_to_per_neighbor(out).mean(0)
 
 
 def predictor_from_flax(params: Mapping, state: Mapping,

@@ -736,3 +736,48 @@ def test_classical_learners_fit_on_the_card_as_on_the_cpu(cuda, learner):
     probs.append(model.predict_proba(q))
   tol = 1e-3 if learner == 'svm' else 1e-6
   assert float(np.abs(probs[0] - probs[1]).max()) <= tol
+
+
+SAVED_MODEL_FIXTURES = (
+    __import__('pathlib').Path(__file__).resolve().parent / 'data'
+    / 'torch_saved_models')
+
+
+@pytest.mark.parametrize('name', ('mlp_policy', 'rate_predictor',
+                                  'atom_detector', 'image_aligner'))
+def test_jax_saved_models_run_on_the_card(cuda, name):
+  """The committed JAX exports through the port's loader on the card:
+  outputs on `cuda`, JAX's recorded outputs within the JAX test's
+  tolerances."""
+  from putting_dune_torch.io import tf_export
+
+  root = SAVED_MODEL_FIXTURES / name
+  model = tf_export.load_tf_saved_model(str(root / 'saved_model'),
+                                        device=cuda)
+  out = model(np.load(root / 'input.npy'))
+  out = out if isinstance(out, tuple) else (out,)
+  rtol, atol = ((1e-3, 1e-4) if name in ('atom_detector', 'image_aligner')
+                else (1e-5, 1e-5))
+  for i, got in enumerate(out):
+    assert got.device.type == 'cuda'
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               np.load(root / f'output_{i}.npy'),
+                               rtol=rtol, atol=atol)
+
+
+def test_port_export_round_trips_on_the_card(cuda, tmp_path):
+  """A UNet exported from the card and reloaded there computes what the
+  module does, in full float32."""
+  from putting_dune_torch.atom_detection import model as det_model
+  from putting_dune_torch.io import stablehlo
+  from putting_dune_torch.io import tf_export
+
+  torch.manual_seed(0)
+  module = det_model.UNet(features=(8, 16)).to(cuda).eval()
+  tf_export.export_tf_saved_model(module, (1, 64, 64, 1), str(tmp_path / 'm'),
+                                  input_name='image')
+  loaded = tf_export.load_tf_saved_model(str(tmp_path / 'm'), device=cuda)
+  x = torch.randn(1, 64, 64, 1, device=cuda)
+  with torch.no_grad(), stablehlo.full_float32():
+    want = module(x)
+  torch.testing.assert_close(loaded(x), want, rtol=1e-4, atol=1e-5)

@@ -38,6 +38,7 @@ from putting_dune_torch.image_alignment import data as t_align_data
 from putting_dune_torch.image_alignment import model as t_align_model
 from putting_dune_torch.image_alignment import save_model as t_align_save
 from putting_dune_torch.image_alignment import train as t_align_train
+from putting_dune_torch.io import tf_export as t_tf_export
 from putting_dune_torch.utils import cli as t_cli
 from putting_dune_tpu import lattice as j_lattice
 from putting_dune_tpu import microscope_data as j_md
@@ -576,12 +577,35 @@ def test_save_model_clis_write_the_jax_keys(tmp_path, capsys):
   with open(tmp_path / 'b' / 'model.json') as f:
     assert json.load(f) == {'kind': 'global_local_unet', 'features': [8, 16],
                             'image_size': 128, 'num_frames': 3}
-  for main in (t_det_save.main, t_align_save.main):
-    with pytest.raises(SystemExit) as e:
-      main([f'--workdir={det_dir}', f'--output_dir={tmp_path}/c',
-            '--export_tf'])
-    assert e.value.code == 2
-  assert 'ROADMAP' in capsys.readouterr().err
+  # --export_tf writes <output_dir>/tf_saved_model, which the port's loader
+  # runs to the network's own outputs (TF loads it too:
+  # tests/test_torch_tf_interop_unets.py).
+  capsys.readouterr()
+  for main, workdir, shape, extra in (
+      (t_det_save.main, det_dir, (1, 32, 32, 1), []),
+      (t_align_save.main, align_dir, (1, 32, 32, FRAMES),
+       [f'--num_frames={FRAMES}'])):
+    out = tmp_path / f'{workdir.name}_tf'
+    main([f'--workdir={workdir}', f'--output_dir={out}', '--image_size=32',
+          '--features', '8', '16', '--export_tf', '--device=cpu', *extra])
+    assert capsys.readouterr().out.splitlines() == [
+        f'Saved native artifact to {out}', 'Exported TF SavedModel.']
+    x = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
+    loaded = t_tf_export.load_tf_saved_model(str(out / 'tf_saved_model'),
+                                             device='cpu')(x)
+    if main is t_det_save.main:
+      module = t_det_model.UNet(features=SMALL)
+      module.load_state_dict(t_det_model.params_from_flax(
+          t_det_train.load_params(str(workdir))))
+      with torch.no_grad():
+        want = (module.eval()(torch.from_numpy(x)),)
+      loaded = (loaded,)
+    else:
+      with torch.no_grad():
+        want = t_align_model.from_flax(t_align_train.load_params(
+            str(workdir)))(torch.from_numpy(x))
+    for got, ref in zip(loaded, want, strict=True):
+      torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
 
 
 # --- the train CLIs -------------------------------------------------------------

@@ -540,16 +540,37 @@ def test_resolve_artifact_cache_rules(tmp_path, monkeypatch):
     t_artifacts.resolve_artifact('ftp://x/y.zip', cache_dir=cache)
   with pytest.raises(FileNotFoundError):
     t_artifacts.resolve_artifact(str(tmp_path / 'nope.zip'), cache_dir=cache)
-  # A gs:// bundle the public endpoint refuses: no authenticated fallback.
-  # The download is refused here without touching the network.
+  # A gs:// bundle the public endpoint refuses falls back to the
+  # authenticated download (io/gcs.py), here from a loopback stand-in of
+  # Google's token endpoint and Cloud Storage with gcloud's user
+  # credentials: nothing leaves 127.0.0.1 (the anonymous download is
+  # refused without touching the network).
   import urllib.request
+
+  import torch_gcs_server
 
   def refuse(url, target):
     raise OSError(f'403 refused: {url}')
 
   monkeypatch.setattr(urllib.request, 'urlretrieve', refuse)
-  with pytest.raises(RuntimeError, match='ROADMAP queue 1, IO'):
-    t_artifacts.resolve_artifact('gs://private-bucket/m.zip', cache_dir=cache)
+  server = torch_gcs_server.LoopbackGoogle()
+  try:
+    config = torch_gcs_server.isolate(monkeypatch, tmp_path)
+    (config / 'application_default_credentials.json').write_text(json.dumps({
+        'type': 'authorized_user', 'client_id': 'c', 'client_secret': 's',
+        'refresh_token': 'r', 'token_uri': f'{server.url}/token'}))
+    monkeypatch.setenv('API_ENDPOINT_OVERRIDE', server.url)
+    server.objects[('private-bucket', 'm.zip')] = open(archive, 'rb').read()
+    out3 = t_artifacts.resolve_artifact('gs://private-bucket/m.zip',
+                                        cache_dir=cache)
+    assert open(os.path.join(out3, 'params.msgpack'), 'rb').read() == (
+        b'v2-weights-longer')
+    assert server.requests[-1][2]['authorization'] == 'Bearer tok-user'
+    with pytest.raises(RuntimeError, match='authenticated client'):
+      t_artifacts.resolve_artifact('gs://private-bucket/gone.zip',
+                                   cache_dir=cache)
+  finally:
+    server.close()
   assert not [p for p in os.listdir(cache) if '.tmp-' in p]
 
 
