@@ -218,9 +218,11 @@ Phases (any failure exits non-zero before the final line):
       the rate-learner CLI once for each of the five classical types
       (sklearn_mlp, knn, gp, random_forest, svm), five subprocesses at
       once on phase 21's aligned file at the CLI's defaults with only
-      --num_models cut (CLASSICAL_MODELS): seconds each, mean train / test
+      --num_models cut (CLASSICAL_MODELS): seconds each and the seconds
+      of it spent writing sklearn's `.joblib` files, mean train / test
       accuracy against CLASSICAL_BARS, the fitted tensors on `cuda`, the
-      files written; (b) the committed JAX-package `.joblib` fixtures
+      files written, and those files read back by the port's reader on
+      the card: max|d| of predict_proba against the fitted models; (b) the committed JAX-package `.joblib` fixtures
       (tests/data/torch_classifiers) read by the port, `predict_proba` on
       the card within 1e-9 of sklearn's recorded arrays; (c) the committed
       JPEGs (tests/data/torch_jpeg) decoded on the host with max |d| 0
@@ -243,7 +245,14 @@ Phases (any failure exits non-zero before the final line):
       EvalAgent's; (e) the authenticated download (`io/gcs.py`) against a
       loopback token endpoint and media server in the process, with a
       throwaway RSA key: ms to sign, for the grant and for the download;
-  25. a `kernels` JSON line; 26. the result JSON line, last.
+  25. the last gaps to the JAX package (no kernel of its own): (a) every
+      name the JAX package's subpackages re-export, and
+      `experiments.registry`, imported from the port (the classical CLI's
+      sklearn files are 23a's); (b) the four shipped models exported
+      `with_gradient=True` at full width and batch 1, reloaded on the
+      card, their gradient by autograd through the loader held against
+      native autograd in full float32: export seconds, MB, max|d|;
+  26. a `kernels` JSON line; 27. the result JSON line, last.
 
 It imports nothing of JAX or of putting_dune_tpu (the shipped weights are
 read as data).
@@ -2657,6 +2666,27 @@ CLASSICAL_BARS = {
     'svm': 0.6621,
 }
 CLASSICAL_TIMEOUT_S = 600
+# What 23a runs for each learner type: the rate-learner CLI's own parser
+# and main, with the seconds spent in `joblib_io.dump` summed, then the
+# fitted models' predict_proba on the committed queries (argv 1), saved
+# with those seconds to argv 2 for the read-back check.
+CLASSICAL_CLI = '''
+import sys, time
+import numpy as np
+from putting_dune_torch.classifiers import joblib_io
+from putting_dune_torch.pipeline import train_rate_learner as cli
+dump, write_s = joblib_io.dump, [0.0]
+def timed_dump(model, path):
+  t0 = time.perf_counter()
+  dump(model, path)
+  write_s[0] += time.perf_counter() - t0
+joblib_io.dump = timed_dump
+_, _, models = cli.main(cli._parse_args(sys.argv[3:]))
+queries = np.load(sys.argv[1])
+np.savez(sys.argv[2], write_s=write_s[0],
+         **{f'proba_{i}': m.predict_proba(queries)
+            for i, m in enumerate(models)})
+'''
 CLASSIFIER_FIXTURES = os.path.join(ROOT, 'tests', 'data',
                                    'torch_classifiers')
 JPEG_FIXTURES = os.path.join(ROOT, 'tests', 'data', 'torch_jpeg')
@@ -2691,14 +2721,16 @@ def _classical_learners(dev, smi, aligned_path, tmp) -> dict:
   # -- 23a. the five classical learner types through the CLI, at once ---------
   print(f'23a --num_models cut from 100 to {CLASSICAL_MODELS}; everything '
         'else at the CLI defaults', flush=True)
+  queries_path = os.path.join(CLASSIFIER_FIXTURES, 'queries.npy')
+  queries = np.load(queries_path)
   procs, started, logs = {}, {}, {}
   for learner in CLASSICAL_LEARNERS:
     workdir = os.path.join(tmp, learner)
     logs[learner] = open(os.path.join(tmp, f'{learner}.log'), 'w+')
     started[learner] = time.perf_counter()
     procs[learner] = subprocess.Popen(
-        [sys.executable, '-m',
-         'putting_dune_torch.pipeline.train_rate_learner',
+        [sys.executable, '-c', CLASSICAL_CLI, queries_path,
+         os.path.join(tmp, f'{learner}_fitted.npz'),
          f'--source_path={aligned_path}', f'--workdir={workdir}',
          f'--learner_type={learner}', f'--num_models={CLASSICAL_MODELS}',
          '--previous_controls_at_current_timestep', *device_flag],
@@ -2739,8 +2771,13 @@ def _classical_learners(dev, smi, aligned_path, tmp) -> dict:
     rows = [line.split('(', 1)[1].split(' rows', 1)[0]
             for line in text.splitlines() if 'fitted tensors on ' in line]
     files = sorted(os.listdir(workdir))
+    fitted = np.load(os.path.join(tmp, f'{learner}_fitted.npz'))
+    write_s = float(fitted['write_s'])
+    mb = sum(os.path.getsize(os.path.join(workdir, f)) for f in files
+             if f.endswith(joblib_io.SUFFIX)) / 1e6
     bar = CLASSICAL_BARS[learner]
-    print(f'23a {learner}: {seconds:.2f} s (five at once), {CLASSICAL_MODELS} '
+    print(f'23a {learner}: {seconds:.2f} s (five at once; of it {write_s:.2f} '
+          f's writing {mb:.2f} MB of .joblib files), {CLASSICAL_MODELS} '
           f'models of {rows} rows, train accuracy {train_acc:.4f}, test '
           f'accuracy {test_acc:.4f} (bar {bar}), fitted tensors on {on}, '
           f'files {files}', flush=True)
@@ -2757,12 +2794,34 @@ def _classical_learners(dev, smi, aligned_path, tmp) -> dict:
                   + [f'{learner}_ensemble{joblib_io.SUFFIX}', 'metrics.npz',
                      'avg_context_rates.png'])
     check(files == want, f'23a {learner}: wrote {files}, expected {want}')
+    # The files read back by the port's reader, held to the fitted models.
+    t0 = time.perf_counter()
+    probas = [torch.as_tensor(fitted[f'proba_{i}'], device=dev)
+              for i in range(CLASSICAL_MODELS)]
+    err = 0.0
+    for i, want_proba in enumerate(probas):
+      back = joblib_io.load(os.path.join(
+          workdir, f'{learner}_{i}{joblib_io.SUFFIX}'), device=dev)
+      got = back.predict_proba_tensor(queries)
+      check(got.device.type == dev.type, f'23a {learner}: read onto '
+            f'{got.device}')
+      err = max(err, float((got - want_proba).abs().max()))
+    ensemble = joblib_io.load(os.path.join(
+        workdir, f'{learner}_ensemble{joblib_io.SUFFIX}'), device=dev)
+    err = max(err, float((ensemble.predict_proba_tensor(queries)
+                          - torch.stack(probas).mean(dim=0)).abs().max()))
+    read_s = time.perf_counter() - t0
+    print(f'23a {learner}: the .joblib files read back on {dev.type} in '
+          f'{read_s:.2f} s: max|d| {err:.3g} of predict_proba on '
+          f'{len(queries)} queries against the fitted models', flush=True)
+    check(err <= 1e-12, f'23a {learner}: max|d| {err} > 1e-12')
     learners[learner] = dict(seconds=seconds, train_accuracy=train_acc,
-                             test_accuracy=test_acc, bar=bar, device=on)
+                             test_accuracy=test_acc, bar=bar, device=on,
+                             write_s=write_s, mb=mb, read_s=read_s,
+                             max_abs_err=err)
   out['learners'] = learners
 
   # -- 23b. the JAX package's learner files, on the card ------------------------
-  queries = np.load(os.path.join(CLASSIFIER_FIXTURES, 'queries.npy'))
   errors = {}
   for name in CLASSICAL_LEARNERS + ('ensemble',):
     t0 = time.perf_counter()
@@ -2846,6 +2905,131 @@ def _classical_learners(dev, smi, aligned_path, tmp) -> dict:
         'card (cuSOLVER Cholesky, cuBLAS GEMMs, sort / topk) and the JPEG '
         f'decoder is host C++; hand-kernel launches in this process during '
         f'phase 23: {launches}', flush=True)
+  return out
+
+
+# Phase 25: the subpackages' public names, the learners' sklearn files and
+# SavedModels with gradients.
+PUBLIC_SUBPACKAGES = ('agents', 'alignment', 'atom_detection', 'env',
+                      'graph_alignment', 'image_alignment', 'imaging',
+                      'parallel', 'experiments')
+# A loaded export's gradient against native autograd on the card, both in
+# full float32: max|d| <= tol * (1 + max|native gradient|).
+GRADIENT_TOL = {'atom_detector': 1e-4, 'image_aligner': 1e-4,
+                'rate_predictor': 1e-5, 'mlp_policy': 1e-5}
+
+
+def gaps_to_the_jax_package(dev, smi) -> dict:
+  """Phase 25 (see the module docstring); returns the numbers it read."""
+  import tempfile
+
+  with tempfile.TemporaryDirectory(prefix='smoke_gaps_') as tmp:
+    return _gaps_to_the_jax_package(dev, smi, tmp)
+
+
+def _gaps_to_the_jax_package(dev, smi, tmp) -> dict:
+  import importlib
+
+  import torch
+
+  from putting_dune_torch import registry
+  from putting_dune_torch.agents import eval_agent
+  from putting_dune_torch.atom_detection import model as det_model
+  from putting_dune_torch.atom_detection import train as det_train
+  from putting_dune_torch.image_alignment import model as align_model
+  from putting_dune_torch.image_alignment import train as align_train
+  from putting_dune_torch.io import stablehlo
+  from putting_dune_torch.io import tf_export
+  from putting_dune_torch.ops import _build
+  from putting_dune_torch.rate_learning import config as rl_config
+  from putting_dune_torch.rate_learning import predictor as predictor_lib
+
+  out = {}
+  _build.reset_launches()
+
+  # -- 25a. the subpackages' public names ---------------------------------------
+  names = 0
+  for sub in PUBLIC_SUBPACKAGES:
+    package = importlib.import_module(f'putting_dune_torch.{sub}')
+    for name in package.__all__:
+      check(getattr(package, name, None) is not None,
+            f'25a: putting_dune_torch.{sub} lacks {name}')
+      names += 1
+  from putting_dune_torch.experiments import registry as exp_registry  # pylint: disable=g-import-not-at-top
+  check(exp_registry is registry, '25a: experiments.registry is a copy')
+  print(f'25a {names} re-exported names of {len(PUBLIC_SUBPACKAGES)} '
+        'subpackages imported; experiments.registry is the registry',
+        flush=True)
+  out['public_names'] = names
+
+  # -- 25b. the shipped models exported with their gradients -------------------
+  weights = eval_agent.MODEL_WEIGHTS_DIR
+  detector = det_model.UNet(features=tuple(det_train.load_arch(os.path.join(
+      weights, 'atom_detector'))['features']))
+  detector.load_state_dict(det_model.params_from_flax(det_train.load_params(
+      os.path.join(weights, 'atom_detector'))))
+  aligner = align_model.from_flax(align_train.load_params(
+      os.path.join(weights, 'image_aligner')))
+  predictor = predictor_lib.LearnedRatePredictor(
+      config=rl_config.RateLearningConfig(beam_units='angstroms'), device=dev)
+  predictor.load(os.path.join(weights, 'rate_predictor'))
+  policy = eval_agent.load_policy(os.path.join(weights, '230422_ppo_v3_2s'),
+                                  dev).eval()
+  rate_mean = predictor_lib._EnsembleMean(predictor.model.eval(), None)  # pylint: disable=protected-access
+  shipped = {
+      'atom_detector': (detector.to(dev).eval(), (1, 256, 256, 1)),
+      'image_aligner': (aligner.to(dev).eval(), (1, 128, 128, 5)),
+      'rate_predictor': (rate_mean, (1, predictor.context_dim)),
+      'mlp_policy': (policy, (policy.obs_dim,)),
+  }
+  gen = torch.Generator(device=dev).manual_seed(25)
+  gradients = {}
+  for name, (module, shape) in shipped.items():
+    for param in module.parameters():
+      param.requires_grad_(False)
+    path = os.path.join(tmp, f'{name}_with_gradient')
+    _sync(dev)
+    t0 = time.perf_counter()
+    tf_export.export_tf_saved_model(module, shape, path, with_gradient=True)
+    export_s = time.perf_counter() - t0
+    loaded = tf_export.load_tf_saved_model(path, device=dev)
+    x = torch.randn(shape, generator=gen, device=dev)
+    with stablehlo.full_float32():
+      outs = module(x)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    cotangents = [torch.randn(o.shape, generator=gen, device=dev)
+                  for o in outs]
+
+    def gradient(fn, x=x, cotangents=cotangents):
+      xg = x.clone().requires_grad_(True)
+      with stablehlo.full_float32():
+        got = fn(xg)
+        got = got if isinstance(got, tuple) else (got,)
+        total = sum((g * c).sum() for g, c in zip(got, cotangents))
+        return torch.autograd.grad(total, xg)[0]
+
+    want = gradient(module)
+    t0 = time.perf_counter()
+    got = gradient(loaded)
+    _sync(dev)
+    grad_s = time.perf_counter() - t0
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    mb = _dir_mb(path)
+    print(f'25b {name} {shape} with_gradient: export {export_s:.2f} s, '
+          f'{mb:.2f} MB; the loader\'s autograd gradient on {got.device} in '
+          f'{grad_s:.3f} s, max|d| {err:.3g} against native autograd (bar '
+          f'{GRADIENT_TOL[name]:g} x (1 + {scale:.3g})) on {smi}', flush=True)
+    check(got.device.type == dev.type, f'25b {name}: gradient on {got.device}')
+    check(err <= GRADIENT_TOL[name] * (1 + scale),
+          f'25b {name}: the loaded gradient differs from native autograd')
+    gradients[name] = dict(export_s=export_s, mb=mb, gradient_s=grad_s,
+                           max_abs_err=err, max_abs_gradient=scale)
+  out['with_gradient'] = gradients
+  launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+  print('25c no new kernel: the exports trace PyTorch ops and the loader '
+        'runs StableHLO as PyTorch ops; hand-kernel launches in this process '
+        f'during phase 25: {launches}', flush=True)
   return out
 
 
@@ -3975,16 +4159,22 @@ def main() -> None:
     print(f'classical learners and JPEG summary ({time.perf_counter() - t0:.1f}'
           f' s): {json.dumps(summary)}', flush=True)
 
-  # -- 24. TF SavedModel interop and the authenticated GCS download -----------
-  t0 = time.perf_counter()
-  summary = saved_model_interop(dev, smi, path_launches)
-  print(f'saved model interop summary ({time.perf_counter() - t0:.1f} s): '
-        f'{json.dumps(summary)}', flush=True)
+    # -- 24. TF SavedModel interop and the authenticated GCS download ---------
+    t0 = time.perf_counter()
+    summary = saved_model_interop(dev, smi, path_launches)
+    print(f'saved model interop summary ({time.perf_counter() - t0:.1f} s): '
+          f'{json.dumps(summary)}', flush=True)
 
-  print(f'phases 1-24 in {time.perf_counter() - t_smoke:.1f} s on {smi}',
+    # -- 25. public names, the learners' sklearn files, gradients ------------
+    t0 = time.perf_counter()
+    summary = gaps_to_the_jax_package(dev, smi)
+    print(f'gaps to the JAX package summary ({time.perf_counter() - t0:.1f} '
+          f's): {json.dumps(summary)}', flush=True)
+
+  print(f'phases 1-25 in {time.perf_counter() - t_smoke:.1f} s on {smi}',
         flush=True)
 
-  # -- 25. kernels line --------------------------------------------------------
+  # -- 26. kernels line --------------------------------------------------------
   kernels = []
   for name, (ms, plain_ms, err, bound_ms, bound_by, source) in rows.items():
     by_path = {path: counts[name] for path, counts in path_launches.items()}

@@ -1,14 +1,6 @@
-"""What the classical learners share: input conversion, the classifier
-surface (`predict`, `score`, `classes_`) and the fitted state the port's
-own files hold.
-
-An estimator names its constructor parameters in `_PARAMS` (JSON values),
-its fitted arrays in `_ARRAYS` (device tensors, or host numpy for the
-names in `_HOST_ARRAYS`), its lists of device tensors in `_TENSOR_LISTS`,
-its fitted scalars in `_SCALARS` and its
-sub-estimators in `_CHILDREN` (lists); `state_tree` / `from_state_tree`
-walk those, which is all `joblib_io.save` / `joblib_io.load` need.
-"""
+"""What the classical learners share: input conversion and the
+classifier surface (`predict`, `score`, `classes_`). An estimator names
+its constructor parameters in `_PARAMS`."""
 
 from __future__ import annotations
 
@@ -47,14 +39,9 @@ def encode_labels(y) -> tuple[np.ndarray, np.ndarray]:
 
 
 class Estimator:
-  """Parameters, device and the state walk."""
+  """Parameters and device."""
 
   _PARAMS: tuple = ()
-  _ARRAYS: tuple = ()
-  _HOST_ARRAYS: tuple = ('classes_',)
-  _TENSOR_LISTS: tuple = ()
-  _SCALARS: tuple = ()
-  _CHILDREN: tuple = ()
 
   def __init__(self, device=None):
     self.device = device_lib.resolve_device(device)
@@ -65,68 +52,6 @@ class Estimator:
   def __repr__(self) -> str:
     args = ', '.join(f'{k}={v!r}' for k, v in self.get_params().items())
     return f'{type(self).__name__}({args})'
-
-  def state_tree(self, arrays: Dict[str, np.ndarray], prefix: str) -> dict:
-    """A JSON-able description of this estimator; its arrays go into
-    `arrays` under keys that start with `prefix`."""
-    node = {'class': type(self).__name__, 'params': self.get_params(),
-            'scalars': {}, 'arrays': [], 'lists': {}, 'children': {}}
-    for name in self._SCALARS:
-      if hasattr(self, name):
-        node['scalars'][name] = _json_scalar(getattr(self, name))
-    for name in self._ARRAYS + self._HOST_ARRAYS:
-      if getattr(self, name, None) is not None:
-        arrays[f'{prefix}{name}'] = host(getattr(self, name))
-        node['arrays'].append(name)
-    for name in self._TENSOR_LISTS:
-      values = getattr(self, name, None)
-      if values is not None:
-        for i, value in enumerate(values):
-          arrays[f'{prefix}{name}.{i}'] = host(value)
-        node['lists'][name] = len(values)
-    for name in self._CHILDREN:
-      node['children'][name] = [
-          child.state_tree(arrays, f'{prefix}{name}.{i}.')
-          for i, child in enumerate(getattr(self, name, None) or ())]
-    return node
-
-  @classmethod
-  def from_state_tree(cls, node: dict, arrays, prefix: str, device,
-                      registry: Dict[str, type]) -> 'Estimator':
-    est = cls.__new__(cls)
-    est.device = torch.device(device)
-    for name, value in node['params'].items():
-      setattr(est, name, tuple(value) if isinstance(value, list) else value)
-    for name, value in node['scalars'].items():
-      setattr(est, name, value)
-    for name in node['arrays']:
-      value = np.asarray(arrays[f'{prefix}{name}'])
-      setattr(est, name, value if name in cls._HOST_ARRAYS
-              else torch.as_tensor(value, device=est.device))
-    for name, count in node['lists'].items():
-      setattr(est, name, [
-          torch.as_tensor(np.asarray(arrays[f'{prefix}{name}.{i}']),
-                          device=est.device) for i in range(count)])
-    for name, children in node['children'].items():
-      setattr(est, name, [
-          registry[child['class']].from_state_tree(
-              child, arrays, f'{prefix}{name}.{i}.', device, registry)
-          for i, child in enumerate(children)])
-    est._restored()
-    return est
-
-  def _restored(self) -> None:
-    """Rebuilds what derives from the restored state (nothing here)."""
-
-
-def _json_scalar(value):
-  if isinstance(value, (np.integer,)):
-    return int(value)
-  if isinstance(value, (np.floating,)):
-    return float(value)
-  if isinstance(value, (list, tuple)):
-    return [_json_scalar(v) for v in value]
-  return value
 
 
 class Classifier(Estimator):

@@ -21,7 +21,6 @@ from putting_dune_torch.classifiers import tree as tree_lib
 
 class RandomForestClassifier(_base.Classifier):
   _PARAMS = ('n_estimators', 'max_depth', 'random_state')
-  _CHILDREN = ('estimators_',)
 
   def __init__(self, n_estimators: int = 100,
                max_depth: Optional[int] = None, random_state=None,
@@ -35,7 +34,7 @@ class RandomForestClassifier(_base.Classifier):
     x = _base.as_tensor(X, self.device, _base.F32)
     self.classes_, encoded = _base.encode_labels(y)
     y_t = torch.as_tensor(encoded, device=self.device)
-    n = x.shape[0]
+    n, self.n_features_in_ = x.shape
     rng = tree_lib.check_random_state(self.random_state)
     seeds = [rng.randint(np.iinfo(np.int32).max)
              for _ in range(self.n_estimators)]
@@ -68,8 +67,6 @@ class VotingClassifier(_base.Classifier):
   is the first estimator's."""
 
   _PARAMS = ('names',)
-  _HOST_ARRAYS = ()
-  _CHILDREN = ('estimators_',)
 
   def __init__(self, estimators: Sequence[Tuple[str, object]]):
     self.names = tuple(name for name, _ in estimators)
@@ -80,9 +77,10 @@ class VotingClassifier(_base.Classifier):
   def classes_(self) -> np.ndarray:
     return self.estimators_[0].classes_
 
+  @property
+  def n_features_in_(self) -> int:
+    return self.estimators_[0].n_features_in_
+
   def predict_proba_tensor(self, X) -> torch.Tensor:
     probas = [est.predict_proba_tensor(X) for est in self.estimators_]
     return torch.stack(probas).mean(dim=0)
-
-  def _restored(self) -> None:
-    self.device = self.estimators_[0].device

@@ -12,10 +12,8 @@ probabilities. The hyperparameters are fitted by `scipy.optimize.minimize
 (method='L-BFGS-B')` on the host from log theta = 0 within log 1e-5 and
 log 1e5, the objective and its gradient computed on the device, as
 sklearn does it. The kernel's squared distances are summed feature by
-feature as scipy's `pdist` sums them.
-
-The port's own files keep theta, the training rows, their labels, pi and
-sqrt(W); the Cholesky factor is rebuilt from them when a file is read.
+feature as scipy's `pdist` sums them. A fitted classifier keeps its
+kernel as sklearn's does: the scales (c, l), not their logarithms.
 """
 
 from __future__ import annotations
@@ -37,11 +35,17 @@ MAX_NEWTON_STEPS = 100  # sklearn's max_iter_predict
 _BLOCK_ELEMENTS = 2**25
 
 
-def kernel(theta, a: torch.Tensor, b: Optional[torch.Tensor] = None,
+def scales_of(theta) -> tuple:
+  """(c, l) = exp(theta), as sklearn's fitted kernel holds them."""
+  return math.exp(float(theta[0])), math.exp(float(theta[1]))
+
+
+def kernel(scales, a: torch.Tensor, b: Optional[torch.Tensor] = None,
            eval_gradient: bool = False):
-  """ConstantKernel * RBF at theta = (log c, log l): K(a, b), and with
-  eval_gradient (b None) the gradient in log theta, a list of two."""
-  c, length = math.exp(float(theta[0])), math.exp(float(theta[1]))
+  """ConstantKernel(c) * RBF(l) at scales = (c, l): K(a, b), and with
+  eval_gradient (b None) the gradient in log theta = (log c, log l), a
+  list of two."""
+  c, length = scales
   xa = a / length
   d2 = _base.squared_distances(xa, xa if b is None else b / length)
   rbf = torch.exp(-0.5 * d2)
@@ -68,8 +72,6 @@ class BinaryLaplace(_base.Classifier):
   Laplace`); y_train_ holds 0 / 1."""
 
   _PARAMS = ('optimize',)
-  _ARRAYS = ('theta', 'X_train_', 'y_train_', 'pi_', 'W_sr_')
-  _SCALARS = ('log_marginal_likelihood_value_',)
 
   def __init__(self, optimize: bool = True, device=None):
     super().__init__(device)
@@ -103,8 +105,8 @@ class BinaryLaplace(_base.Classifier):
   def log_marginal_likelihood(self, theta, eval_gradient: bool = False):
     """Algorithm 5.1's value, and its gradient in log theta."""
     if not eval_gradient:
-      return self._posterior_mode(kernel(theta, self.X_train_))[0]
-    k, grads = kernel(theta, self.X_train_, eval_gradient=True)
+      return self._posterior_mode(kernel(scales_of(theta), self.X_train_))[0]
+    k, grads = kernel(scales_of(theta), self.X_train_, eval_gradient=True)
     z, pi, w_sr, chol, a = self._posterior_mode(k)
     r = w_sr[:, None] * torch.cholesky_solve(torch.diag(w_sr), chol)
     c = torch.linalg.solve_triangular(chol, w_sr[:, None] * k, upper=False)
@@ -141,25 +143,19 @@ class BinaryLaplace(_base.Classifier):
     else:
       self.log_marginal_likelihood_value_ = self.log_marginal_likelihood(
           theta)
-    self.theta = torch.as_tensor(theta, dtype=_base.F64, device=self.device)
-    _, self.pi_, self.W_sr_, self.L_, _ = self._posterior_mode(
-        kernel(theta, self.X_train_))
+    self.scales = scales_of(theta)
+    k = kernel(self.scales, self.X_train_)
+    _, self.pi_, self.W_sr_, self.L_, a = self._posterior_mode(k)
+    self.f_cached = k @ a  # sklearn's last Newton iterate
     return self
-
-  def _restored(self) -> None:
-    """The Cholesky factor of I + W^1/2 K W^1/2 from the stored state."""
-    k = kernel(self.theta, self.X_train_)
-    eye = torch.eye(k.shape[0], dtype=k.dtype, device=k.device)
-    self.L_ = torch.linalg.cholesky(eye + self.W_sr_[:, None] * k
-                                    * self.W_sr_)
 
   def latent_mean_and_variance(self, X):
     x = _base.as_tensor(X, self.device, _base.F64)
     rows = max(1, _BLOCK_ELEMENTS // max(1, self.X_train_.shape[0]))
     means, variances = [], []
-    c = math.exp(float(self.theta[0]))
+    c = self.scales[0]
     for sl in _base.chunks(x.shape[0], rows):
-      k_star = kernel(self.theta, self.X_train_, x[sl])
+      k_star = kernel(self.scales, self.X_train_, x[sl])
       means.append(k_star.T @ (self.y_train_ - self.pi_))
       v = torch.linalg.solve_triangular(self.L_, self.W_sr_[:, None] * k_star,
                                         upper=False)
@@ -184,7 +180,6 @@ class GaussianProcessClassifier(_base.Classifier):
   theta = 0 (c = l = 1)."""
 
   _PARAMS = ('optimizer',)
-  _CHILDREN = ('estimators_',)
 
   def __init__(self, optimizer: Optional[str] = 'fmin_l_bfgs_b',
                device=None):
@@ -193,6 +188,7 @@ class GaussianProcessClassifier(_base.Classifier):
 
   def fit(self, X, y) -> 'GaussianProcessClassifier':
     x = _base.as_tensor(X, self.device, _base.F64)
+    self.n_features_in_ = x.shape[1]
     self.classes_, encoded = _base.encode_labels(y)
     k = len(self.classes_)
     if k < 2:
@@ -213,7 +209,9 @@ class GaussianProcessClassifier(_base.Classifier):
 
   def predict(self, X) -> np.ndarray:
     if len(self.estimators_) == 1:
-      return self.estimators_[0].predict(X)
+      # The binary classifier learnt the classes' indices.
+      mean, _ = self.estimators_[0].latent_mean_and_variance(X)
+      return self.classes_[_base.host((mean > 0).to(torch.int64))]
     # sklearn's one-against-the-rest: the largest positive probability,
     # the last class on ties.
     probs = torch.stack([e.positive_probability(X)

@@ -14,7 +14,6 @@ _BLOCK_ELEMENTS = 2**25
 
 class KNeighborsClassifier(_base.Classifier):
   _PARAMS = ('n_neighbors',)
-  _ARRAYS = ('_fit_X', '_y')
 
   def __init__(self, n_neighbors: int = 5, device=None):
     super().__init__(device)
@@ -22,6 +21,7 @@ class KNeighborsClassifier(_base.Classifier):
 
   def fit(self, X, y) -> 'KNeighborsClassifier':
     self._fit_X = _base.as_tensor(X, self.device, _base.F64)
+    self.n_features_in_ = self._fit_X.shape[1]
     self.classes_, encoded = _base.encode_labels(y)
     if self.n_neighbors > self._fit_X.shape[0]:
       raise ValueError(f'n_neighbors={self.n_neighbors} is more than the '

@@ -33,9 +33,6 @@ N_ITER_NO_CHANGE = 10
 
 class MLPClassifier(_base.Classifier):
   _PARAMS = ('alpha', 'max_iter', 'shuffle', 'random_state', 'tol')
-  _TENSOR_LISTS = ('coefs_', 'intercepts_')
-  _SCALARS = ('n_iter_', 'loss_', 'best_loss_', 'loss_curve_',
-              'out_activation_')
 
   def __init__(self, alpha: float = 1e-4, max_iter: int = 200,
                shuffle: bool = True, random_state=None, tol: float = 1e-4,
@@ -82,6 +79,7 @@ class MLPClassifier(_base.Classifier):
 
   def fit(self, X, y) -> 'MLPClassifier':
     x = _base.as_tensor(X, self.device, _base.F64)
+    self.n_features_in_ = x.shape[1]
     self.classes_, encoded = _base.encode_labels(y)
     if len(self.classes_) < 2:
       raise ValueError('MLPClassifier needs at least two classes')
@@ -98,6 +96,10 @@ class MLPClassifier(_base.Classifier):
       intercept = rng.uniform(-bound, bound, fan_out)
       self.coefs_.append(torch.as_tensor(coef, device=self.device))
       self.intercepts_.append(torch.as_tensor(intercept, device=self.device))
+    # sklearn keeps the initial weights as its best ones when it does not
+    # stop early; `joblib_io.dump` writes them, with the optimiser's state.
+    self._best_coefs = [c.clone() for c in self.coefs_]
+    self._best_intercepts = [b.clone() for b in self.intercepts_]
     params = self.coefs_ + self.intercepts_
     ms = [torch.zeros_like(p) for p in params]
     vs = [torch.zeros_like(p) for p in params]
@@ -150,6 +152,10 @@ class MLPClassifier(_base.Classifier):
       if no_improvement > N_ITER_NO_CHANGE:
         break
     self.best_loss_ = float(self.best_loss_)
+    self.t_ = n * self.n_iter_
+    self._no_improvement_count = no_improvement
+    self._random_state = rng
+    self._adam = {'t': step, 'learning_rate': lr, 'ms': ms, 'vs': vs}
     return self
 
   def predict_proba_tensor(self, X) -> torch.Tensor:

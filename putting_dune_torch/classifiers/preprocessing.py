@@ -20,13 +20,10 @@ _EPS = float(np.finfo(np.float64).eps)
 
 
 class StandardScaler(_base.Estimator):
-  _ARRAYS = ('mean_', 'var_', 'scale_')
-  _HOST_ARRAYS = ()
-  _SCALARS = ('n_samples_seen_',)
 
   def fit(self, X, y=None) -> 'StandardScaler':
     x = _base.as_tensor(X, self.device, _base.F64)
-    n = x.shape[0]
+    n, self.n_features_in_ = x.shape
     self.n_samples_seen_ = n
     # sklearn's _incremental_mean_and_var from nothing seen.
     self.mean_ = x.sum(dim=0) / n
@@ -58,8 +55,6 @@ class Pipeline(_base.Classifier):
   """A transformer then a classifier, sklearn's `Pipeline` for two steps."""
 
   _PARAMS = ('step_names',)
-  _HOST_ARRAYS = ()
-  _CHILDREN = ('step_estimators',)
 
   def __init__(self, steps: Sequence[Tuple[str, object]]):
     self.step_names = tuple(name for name, _ in steps)
@@ -73,6 +68,10 @@ class Pipeline(_base.Classifier):
   @property
   def classes_(self) -> np.ndarray:
     return self.step_estimators[-1].classes_
+
+  @property
+  def n_features_in_(self) -> int:
+    return self.step_estimators[0].n_features_in_
 
   def _transform(self, X) -> torch.Tensor:
     for est in self.step_estimators[:-1]:
@@ -90,9 +89,6 @@ class Pipeline(_base.Classifier):
 
   def predict(self, X) -> np.ndarray:
     return self.step_estimators[-1].predict(self._transform(X))
-
-  def _restored(self) -> None:
-    self.device = self.step_estimators[-1].device
 
 
 def make_pipeline(*estimators) -> Pipeline:

@@ -269,8 +269,6 @@ class SVC(_base.Classifier):
   is 2)."""
 
   _PARAMS = ('C', 'gamma', 'tol', 'probability', 'random_state')
-  _ARRAYS = ('support_vectors_', 'n_support_', 'dual_coef', 'rho',
-             'prob_a', 'prob_b')
 
   def __init__(self, C: float = 1.0, gamma: float = 2.0, tol: float = 1e-3,
                probability: bool = False, random_state=None, device=None):
@@ -283,6 +281,7 @@ class SVC(_base.Classifier):
 
   def fit(self, X, y) -> 'SVC':
     x = _base.as_tensor(X, self.device, _base.F64)
+    self.n_features_in_ = x.shape[1]
     self.classes_, encoded = _base.encode_labels(y)
     k = len(self.classes_)
     if k < 2:
@@ -317,6 +316,8 @@ class SVC(_base.Classifier):
       pair_rows.append(len(problems))
       problems.append((members, labels))
     alpha, rho = self._solve(gram, qd, problems)
+    self.shape_fit_ = tuple(x.shape)
+    self.pair_iterations_ = np.asarray(_base.host(self.n_iter_))[pair_rows]
     dec_cv = {pair: torch.zeros(len(by_class[pair[0]]) + len(by_class[pair[1]]),
                                 dtype=_base.F64, device=self.device)
               for pair in pairs}
@@ -459,6 +460,5 @@ class SVC(_base.Classifier):
         r[:, i, j] = prob
         r[:, j, i] = 1 - prob
         p += 1
-    if k == 2:
-      return torch.stack([r[:, 0, 1], r[:, 1, 0]], dim=1)
+    # sklearn's libsvm couples the pairs for two classes too.
     return multiclass_probability(r)

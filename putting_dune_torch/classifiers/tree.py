@@ -75,9 +75,6 @@ def resolve_max_features(max_features, n_features: int) -> int:
 
 class DecisionTreeClassifier(_base.Classifier):
   _PARAMS = ('max_depth', 'max_features', 'random_state')
-  _ARRAYS = ('children_left', 'children_right', 'feature', 'threshold',
-             'value', 'n_node_samples', 'weighted_n_node_samples',
-             'impurity')
 
   def __init__(self, max_depth: Optional[int] = None, max_features=None,
                random_state=None, device=None):

@@ -260,8 +260,9 @@ _TYPE_CODES = {
 # The properties of each VHLO op: its inherent attributes, each written as
 # an attribute index, in this order (the names sorted, as ODS emits them).
 # builtin.module's two are optional (a flag, then the index). Only the ops
-# that JAX's exports of the four models and `io/torch_to_stablehlo.py` hold
-# are listed; a file with another op that has properties is refused.
+# that JAX's exports of the four models (with their gradients) and
+# `io/torch_to_stablehlo.py` hold are listed; a file with another op that
+# has properties is refused.
 _VHLO_PROPERTIES = {
     'broadcast_in_dim_v1': ('broadcast_dimensions',),
     'call_v1': ('callee',),
@@ -292,12 +293,16 @@ _VHLO_PROPERTIES = {
     ),
     'log_plus_one_v2': ('result_accuracy',),
     'logistic_v2': ('result_accuracy',),
+    'pad_v1': ('edge_padding_high', 'edge_padding_low', 'interior_padding'),
     'reduce_v1': ('dimensions',),
     'reduce_window_v1': (
         'base_dilations', 'padding', 'window_dilations', 'window_dimensions',
         'window_strides',
     ),
+    'reverse_v1': ('dimensions',),
     'rsqrt_v2': ('result_accuracy',),
+    'select_and_scatter_v1': ('padding', 'window_dimensions',
+                              'window_strides'),
     'slice_v1': ('limit_indices', 'start_indices', 'strides'),
     'tanh_v2': ('result_accuracy',),
     'transpose_v1': ('permutation',),

@@ -94,7 +94,8 @@ def tensor_type(t: mb.Type) -> Tuple[Tuple[int, ...], torch.dtype]:
 
 def dense_array(attr: mb.Attr) -> np.ndarray:
   """The numpy value of a `tensor_v1` attribute (a splat is one element's
-  bytes; i1 is a byte an element, or bit-packed)."""
+  bytes). i1 is read as MLIR reads it: one byte 0x00 or 0xff is a splat,
+  anything else eight elements a byte, the first in the lowest bit."""
   if attr.kind != 'tensor_v1':
     raise _refuse(f'attribute {attr.dialect}.{attr.kind} as a tensor')
   t, data = attr.args
@@ -105,13 +106,13 @@ def dense_array(attr: mb.Attr) -> np.ndarray:
   size = math.prod(shape)
   if element.kind == 'bool_v1':
     raw = np.frombuffer(data, np.uint8)
-    if raw.size == 1:
-      values = np.full(size, raw[0] != 0)
-    elif raw.size == size:
-      values = raw != 0
-    else:
-      values = np.unpackbits(raw, bitorder='little')[:size].astype(bool)
-    return values.reshape(shape)
+    if raw.size == 1 and raw[0] in (0, 0xff):
+      return np.full(shape, bool(raw[0]))
+    if raw.size * 8 < size:
+      raise mb.BytecodeError(f'i1 constant of {raw.size} bytes for shape '
+                             f'{shape}')
+    return np.unpackbits(raw, bitorder='little')[:size].astype(bool).reshape(
+        shape)
   values = np.frombuffer(data, dtype)
   if values.size == 1 and size != 1:
     return np.full(shape, values[0], dtype)
@@ -397,6 +398,67 @@ def _reduce_window(kind: str, props: Dict[str, mb.Attr], out_shape):
   return run
 
 
+def _pad(low, high, interior):
+  """`pad`: interior padding between elements, then edge padding (a
+  negative edge crops)."""
+
+  def run(x, value):
+    fill = value.reshape(()).to(x.dtype)
+    if any(interior):
+      shape = [(s - 1) * (i + 1) + 1 if s else 0
+               for s, i in zip(x.shape, interior)]
+      spread = fill.expand(shape).clone()
+      spread[tuple(slice(None, None, i + 1) for i in interior)] = x
+      x = spread
+    torch_pad = []
+    for lo, hi in zip(reversed(low), reversed(high)):
+      torch_pad += [max(lo, 0), max(hi, 0)]
+    if any(torch_pad):
+      x = F.pad(x, torch_pad, value=float(fill))
+    crop = tuple(slice(-lo if lo < 0 else 0, s + hi if hi < 0 else s)
+                 for lo, hi, s in zip(low, high, x.shape))
+    return x[crop]
+
+  return run
+
+
+def _select_and_scatter(op: mb.Op) -> Callable:
+  """`select_and_scatter` whose select is GE (the first largest of each
+  window wins, as in max pooling's gradient) and whose scatter adds:
+  each source value is added at its window's selected element."""
+  attrs = op.attributes
+  window = ints(attrs['window_dimensions'])
+  rank = len(window)
+  strides = (ints(attrs['window_strides']) if 'window_strides' in attrs
+             else (1,) * rank)
+  if 'padding' in attrs and any(ints(attrs['padding'])):
+    raise _refuse('select_and_scatter with padding')
+  select, scatter = op.regions if len(op.regions) == 2 else (None, None)
+  body = select.blocks[0].ops[0] if select else None
+  if (body is None or body.name != 'vhlo.compare_v1'
+      or body.attributes['comparison_direction'].args[0] != 2
+      or body.operands != select.blocks[0].args):
+    raise _refuse('select_and_scatter whose select is not a >= b')
+  if _reduction_body(mb.Op(name=op.name, loc=None, regions=[scatter])
+                     ) != 'add':
+    raise _refuse('select_and_scatter whose scatter does not add')
+
+  def windows(x):
+    for d in range(rank):
+      x = x.unfold(d, window[d], strides[d])
+    return x.reshape(*x.shape[:rank], -1)
+
+  def run(x, source, init):
+    # torch.argmax gives the first largest of each window (row-major).
+    first = torch.argmax(windows(x), dim=-1, keepdim=True)
+    flat = torch.arange(x.numel(), device=x.device).reshape(x.shape)
+    where = torch.gather(windows(flat), -1, first).reshape(-1)
+    out = init.reshape(()).to(source.dtype).expand(x.numel()).clone()
+    return out.index_add_(0, where, source.reshape(-1)).reshape(x.shape)
+
+  return run
+
+
 def _slice(starts, limits, strides):
   index = tuple(slice(s, l, st) for s, l, st in zip(starts, limits, strides))
   return lambda x: x[index]
@@ -505,6 +567,18 @@ class Program:
     if short == 'slice_v1':
       return one(_slice(ints(attrs['start_indices']),
                         ints(attrs['limit_indices']), ints(attrs['strides'])))
+    if short == 'convert_v1':
+      dtype = out_types[0][1]
+      return one(lambda x: x.to(dtype))
+    if short == 'pad_v1':
+      return one(_pad(ints(attrs['edge_padding_low']),
+                      ints(attrs['edge_padding_high']),
+                      ints(attrs['interior_padding'])))
+    if short == 'reverse_v1':
+      dims = list(ints(attrs['dimensions']))
+      return one(lambda x: torch.flip(x, dims))
+    if short == 'select_and_scatter_v1':
+      return one(_select_and_scatter(op))
     if short == 'concatenate_v1':
       dim = int_attr(attrs['dimension'])
       return lambda *xs: (torch.cat(xs, dim=dim),)

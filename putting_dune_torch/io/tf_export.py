@@ -53,6 +53,7 @@ GRAPH_PRODUCER, GRAPH_MIN_CONSUMER = 2474, 12
 _CONFIG_PROTO = (b'\n\x07\n\x03CPU\x10\x01\n\x07\n\x03GPU\x10\x002\x02J\x00'
                  b'8\x01\x82\x01\x00\x92\x01\x02J\x00')
 _OBJECT_GRAPH_KEY = '_CHECKPOINTABLE_OBJECT_GRAPH'
+_GRADIENT_OP_TYPE = 'CustomGradient-1'
 _PREVENT_GRADIENT = (b'The jax2tf-converted function does not support '
                      b'gradients. Use `with_gradient` parameter to enable '
                      b'gradients')
@@ -125,32 +126,51 @@ def _call(name: str, inputs, fn: str, n_in: int, n_out: int, out_shapes):
       f=tw.AttrValue(func=tw.NameAttrList(name=fn)))
 
 
-def _converted_fn(name, input_name, input_shape, module_bytes, out_shapes):
-  n = len(out_shapes)
-  suffix = lambda i: '' if i == 0 else f'_{i}'
-  xla = _node(
-      'XlaCallModule', 'XlaCallModule', ['jax2tf_arg_0:output:0'],
-      Sout=_shapes(*out_shapes), Tin=_types(1), Tout=_types(n),
+def _xla_call(name, inputs, in_shapes, out_shapes, module_bytes):
+  return _node(
+      name, 'XlaCallModule', inputs, Sout=_shapes(*out_shapes),
+      Tin=_types(len(in_shapes)), Tout=_types(len(out_shapes)),
       _output_shapes=_shapes(*out_shapes),
       module=tw.AttrValue(s=module_bytes),
       platforms=tw.AttrValue(list=tw.AttrValueListValue(
           s=[p.encode() for p in PLATFORMS])),
       use_shardy_partitioner=tw.AttrValue(b=True),
       version=tw.AttrValue(i=XLA_CALL_MODULE_VERSION))
-  nodes = [_node('jax2tf_arg_0', 'Identity', [input_name],
-                 T=tw.AttrValue(type=tw.DT_FLOAT),
-                 _output_shapes=_shapes(input_shape)), xla]
-  for i, s in enumerate(out_shapes):
-    nodes.append(_node(f'PreventGradient{suffix(i)}', 'PreventGradient',
-                       [f'XlaCallModule:output:{i}'],
-                       T=tw.AttrValue(type=tw.DT_FLOAT),
-                       _output_shapes=_shapes(s),
-                       message=tw.AttrValue(s=_PREVENT_GRADIENT)))
-  for i, s in enumerate(out_shapes):
-    nodes.append(_node(f'jax2tf_out{suffix(i)}', 'Identity',
-                       [f'PreventGradient{suffix(i)}:output:0'],
-                       T=tw.AttrValue(type=tw.DT_FLOAT),
-                       _output_shapes=_shapes(s)))
+
+
+def _identity(name, source, shape) -> tw.NodeDef:
+  return _node(name, 'Identity', [source], T=tw.AttrValue(type=tw.DT_FLOAT),
+               _output_shapes=_shapes(shape))
+
+
+def _converted_fn(name, input_name, input_shape, module_bytes, out_shapes,
+                  gradient_op_type=None):
+  """jax2tf's converted function. Without a gradient each output passes a
+  `PreventGradient`; with one, the outputs and the input pass one
+  `IdentityN` whose `_gradient_op_type` names the registered gradient."""
+  n = len(out_shapes)
+  suffix = lambda i: '' if i == 0 else f'_{i}'
+  nodes = [_identity('jax2tf_arg_0', input_name, input_shape),
+           _xla_call('XlaCallModule', ['jax2tf_arg_0:output:0'],
+                     [input_shape], out_shapes, module_bytes)]
+  if gradient_op_type is None:
+    for i, s in enumerate(out_shapes):
+      nodes.append(_node(f'PreventGradient{suffix(i)}', 'PreventGradient',
+                         [f'XlaCallModule:output:{i}'],
+                         T=tw.AttrValue(type=tw.DT_FLOAT),
+                         _output_shapes=_shapes(s),
+                         message=tw.AttrValue(s=_PREVENT_GRADIENT)))
+    sources = [f'PreventGradient{suffix(i)}:output:0' for i in range(n)]
+  else:
+    nodes.append(_node(
+        'IdentityN', 'IdentityN',
+        [f'XlaCallModule:output:{i}' for i in range(n)]
+        + ['jax2tf_arg_0:output:0'], T=_types(n + 1),
+        _gradient_op_type=tw.AttrValue(s=gradient_op_type.encode()),
+        _output_shapes=_shapes(*out_shapes, input_shape)))
+    sources = [f'IdentityN:output:{i}' for i in range(n)]
+  for i, (source, s) in enumerate(zip(sources, out_shapes)):
+    nodes.append(_identity(f'jax2tf_out{suffix(i)}', source, s))
   nodes += _identities([f'jax2tf_out{suffix(i)}:output:0' for i in range(n)],
                        out_shapes)
   nodes.append(_node('NoOp', 'NoOp', ['^XlaCallModule'],
@@ -160,6 +180,36 @@ def _converted_fn(name, input_name, input_shape, module_bytes, out_shapes):
   return _function(name, [(input_name, tw.DT_FLOAT)],
                    [(k, tw.DT_FLOAT) for k in ret], nodes, ret,
                    'XlaCallModule', [input_shape], [input_name])
+
+
+_CAPTURED_INPUT = 'jax2tf_vjp_jax2tf_arg_0_jax2tf_arg_0'
+
+
+def _gradient_fn(name, input_shape, vjp_bytes, out_shapes):
+  """jax2tf's gradient function: `result_grads_i`, one an output of the
+  IdentityN (the last, the input's, unused), then the captured input; the
+  VJP module gives the input's cotangent."""
+  n = len(out_shapes)
+  grad_shapes = list(out_shapes) + [input_shape]
+  nodes = [_identity('jax2tf_vjp/jax2tf_arg_0', _CAPTURED_INPUT,
+                     input_shape)]
+  nodes += [_identity(f'jax2tf_vjp/jax2tf_arg_{i + 1}', f'result_grads_{i}',
+                      s) for i, s in enumerate(out_shapes)]
+  nodes.append(_xla_call(
+      'jax2tf_vjp/XlaCallModule',
+      [f'jax2tf_vjp/jax2tf_arg_{i}:output:0' for i in range(n + 1)],
+      [input_shape] + list(out_shapes), [input_shape], vjp_bytes))
+  nodes.append(_identity('jax2tf_vjp/jax2tf_out',
+                         'jax2tf_vjp/XlaCallModule:output:0', input_shape))
+  nodes += _identities(['jax2tf_vjp/jax2tf_out:output:0'], [input_shape])
+  nodes.append(_node('NoOp', 'NoOp', ['^jax2tf_vjp/XlaCallModule'],
+                     _output_shapes=_shapes()))
+  names = [f'result_grads_{i}' for i in range(n + 1)] + [_CAPTURED_INPUT]
+  return _function(name, [(a, tw.DT_FLOAT) for a in names],
+                   [('identity', tw.DT_FLOAT)], nodes,
+                   {'identity': 'Identity:output:0'},
+                   'jax2tf_vjp/XlaCallModule',
+                   grad_shapes + [input_shape], names)
 
 
 def _identities(sources, shapes, dtype=tw.DT_FLOAT) -> List[tw.NodeDef]:
@@ -215,7 +265,7 @@ def _tuple(values) -> tw.StructuredValue:
 
 
 def _object_graph(converted, wrapper, input_name, input_shape, out_shapes,
-                  is_tuple) -> tw.SavedObjectGraph:
+                  is_tuple, gradient=None) -> tw.SavedObjectGraph:
   user = lambda identifier: tw.SavedUserObject(
       identifier=identifier, version=tw.VersionDef(producer=1,
                                                    min_consumer=1))
@@ -262,6 +312,21 @@ def _object_graph(converted, wrapper, input_name, input_shape, out_shapes,
               fields={f'output_{i}': _spec(f'output_{i}', s)
                       for i, s in enumerate(out_shapes)}))),
   }
+  if gradient is not None:
+    # The gradient function's captured input: the converted function's
+    # `jax2tf_arg_0`, an object of its own that the function binds.
+    nodes.append(tw.SavedObject(captured_tensor=tw.CapturedTensor(
+        name='jax2tf_arg_0:0', concrete_function=converted)))
+    n = len(out_shapes)
+    grads = [_spec(f'result_grads_{i}', s)
+             for i, s in enumerate(list(out_shapes) + [input_shape])]
+    concrete[gradient] = tw.SavedConcreteFunction(
+        bound_inputs=[len(nodes) - 1],
+        canonicalized_input_signature=_tuple([
+            _tuple([_none()] + grads),
+            tw.StructuredValue(dict_value=tw.DictValue())]),
+        output_signature=tw.StructuredValue(list_value=tw.ListValue(
+            values=[_none()] * n + [_spec(f'tensor_{n}', input_shape)])))
   return tw.SavedObjectGraph(nodes=nodes, concrete_functions=concrete)
 
 
@@ -279,13 +344,30 @@ def _checkpoint_graph() -> bytes:
 
 def write_saved_model(module_bytes: bytes, input_shape, out_shapes,
                       save_dir: str, *, input_name: str = 'input',
-                      is_tuple: bool = False) -> None:
+                      is_tuple: bool = False,
+                      vjp_bytes: bytes = None) -> None:
   """Writes `saved_model.pb` and `variables/` around a portable artifact
-  whose main takes the platform index and one float32 input."""
+  whose main takes the platform index and one float32 input. Given
+  `vjp_bytes` (a module of the platform index, the input and one
+  cotangent an output, giving the input's cotangent), the outputs carry
+  it as their registered gradient, as `jax2tf.convert(with_gradient=True)`
+  saves them."""
   n = len(out_shapes)
   converted = '__inference_converted_fun_tf_1'
   wrapper = '__inference_signature_wrapper_2'
   placeholder = f'serving_default_{input_name}'
+  functions = [_converted_fn(converted, input_name, input_shape, module_bytes,
+                             out_shapes,
+                             None if vjp_bytes is None else _GRADIENT_OP_TYPE),
+               _signature_wrapper(wrapper, converted, input_name, input_shape,
+                                  out_shapes)]
+  gradient, registered = None, []
+  if vjp_bytes is not None:
+    gradient = '__inference_internal_grad_fn_3'
+    functions.append(_gradient_fn(gradient, input_shape, vjp_bytes,
+                                  out_shapes))
+    registered = [tw.RegisteredGradient(gradient_func=gradient,
+                                        registered_op_type=_GRADIENT_OP_TYPE)]
   graph = tw.GraphDef(
       node=[
           _node(placeholder, 'Placeholder',
@@ -296,11 +378,8 @@ def write_saved_model(module_bytes: bytes, input_shape, out_shapes,
                 out_shapes),
           _node('NoOp', 'NoOp'),
       ],
-      library=tw.FunctionDefLibrary(function=[
-          _converted_fn(converted, input_name, input_shape, module_bytes,
-                        out_shapes),
-          _signature_wrapper(wrapper, converted, input_name, input_shape,
-                             out_shapes)]),
+      library=tw.FunctionDefLibrary(function=functions,
+                                    registered_gradients=registered),
       versions=tw.VersionDef(producer=GRAPH_PRODUCER,
                              min_consumer=GRAPH_MIN_CONSUMER))
   signature = tw.SignatureDef(
@@ -322,7 +401,8 @@ def write_saved_model(module_bytes: bytes, input_shape, out_shapes,
       signature_def={'__saved_model_init_op': init,
                      'serving_default': signature},
       object_graph_def=_object_graph(converted, wrapper, input_name,
-                                     input_shape, out_shapes, is_tuple))
+                                     input_shape, out_shapes, is_tuple,
+                                     gradient))
   os.makedirs(os.path.join(save_dir, 'variables'), exist_ok=True)
   with open(os.path.join(save_dir, 'saved_model.pb'), 'wb') as f:
     f.write(tw.SavedModel(saved_model_schema_version=1,
@@ -342,11 +422,12 @@ def export_tf_saved_model(
 ) -> None:
   """Exports `fn` (a torch module or function of one float32 tensor) at
   `input_shape` as a TF SavedModel. It is traced on the device its
-  parameters are on (the CPU for a function without any)."""
-  if with_gradient:
-    raise NotImplementedError(
-        'with_gradient=True (a custom gradient in the SavedModel) is not '
-        'ported; see ROADMAP queue 1')
+  parameters are on (the CPU for a function without any). With
+  `with_gradient`, the SavedModel also holds fn's vector-Jacobian product
+  (`torch_to_stablehlo.export_vjp`) as the outputs' gradient, so TF's
+  `GradientTape` (and this module's loader, under autograd)
+  differentiates the loaded function; without it, the outputs stop
+  gradients, as jax2tf's do."""
   input_shape = tuple(int(d) for d in input_shape)
   device = torch.device('cpu')
   if isinstance(fn, torch.nn.Module):
@@ -357,8 +438,13 @@ def export_tf_saved_model(
       device = tensor.device
   module, out_shapes, is_tuple = torch_to_stablehlo.export(
       fn, input_shape, device)
+  vjp_bytes = None
+  if with_gradient:
+    vjp_bytes = mb.write_module(torch_to_stablehlo.export_vjp(
+        fn, input_shape, out_shapes, device))
   write_saved_model(mb.write_module(module), input_shape, out_shapes,
-                    save_dir, input_name=input_name, is_tuple=is_tuple)
+                    save_dir, input_name=input_name, is_tuple=is_tuple,
+                    vjp_bytes=vjp_bytes)
 
 
 # --- loading -----------------------------------------------------------------
@@ -404,7 +490,41 @@ class _GraphFunction:
   def _run(self, node: tw.NodeDef, values) -> list:
     inputs = [self._resolve(i, values) for i in node.input
               if not i.startswith('^')]
+    op_type = node.attr.get('_gradient_op_type')
+    if (node.op == 'IdentityN' and op_type is not None
+        and torch.is_grad_enabled()):
+      # A custom gradient: the registered function, given the outputs'
+      # cotangents and what it captured from this function.
+      name, captures = self.loader.registered_gradient(op_type.s.decode(),
+                                                       self.fdef)
+      captured = [self._resolve(c, values) for c in captures]
+      return list(_CustomGradient.apply(self.loader, name, len(inputs),
+                                        *inputs, *captured))
     return self.loader.run_op(node, inputs, self)
+
+
+class _CustomGradient(torch.autograd.Function):
+  """The identity on a node's inputs whose backward runs a registered
+  gradient function: its inputs are one cotangent an output (zeros for
+  none) then the captured tensors, its outputs (None for an input without
+  a gradient) the inputs' cotangents."""
+
+  @staticmethod
+  def forward(ctx, loader, name, n_in, *tensors):
+    ctx.loader, ctx.name = loader, name
+    ctx.save_for_backward(*tensors[n_in:])
+    ctx.inputs = [(t.shape, t.dtype) for t in tensors[:n_in]]
+    return tuple(t.clone() for t in tensors[:n_in])
+
+  @staticmethod
+  def backward(ctx, *grads):
+    grads = [torch.zeros(s, dtype=d, device=ctx.loader.device)
+             if g is None else g for g, (s, d) in zip(grads, ctx.inputs)]
+    with torch.no_grad():
+      flat = ctx.loader.call_function(ctx.name,
+                                      grads + list(ctx.saved_tensors))
+    out = ctx.loader.gradient_outputs(ctx.name, flat)
+    return (None, None, None, *out, *[None] * len(ctx.saved_tensors))
 
 
 class _Function:
@@ -428,9 +548,9 @@ class _Function:
     if kwargs:
       raise TypeError(f'unexpected inputs {sorted(kwargs)}')
     tensors = [self._loader.to_device(a) for a in args]
-    with torch.no_grad():
-      flat = self._loader.call_function(self._name,
-                                        tensors + self._captured)
+    # Under autograd, gradients flow only through registered gradients
+    # (the modules run without autograd, as PreventGradient would have it).
+    flat = self._loader.call_function(self._name, tensors + self._captured)
     return _pack(self._structure, list(flat))
 
 
@@ -464,6 +584,8 @@ class LoadedSavedModel:
     meta = metas[0]
     self._library = {f.signature.name: f
                      for f in meta.graph_def.library.function}
+    self._gradients = {g.registered_op_type: g.gradient_func
+                       for g in meta.graph_def.library.registered_gradients}
     self._functions: Dict[str, _GraphFunction] = {}
     graph = meta.object_graph_def
     self._nodes = graph.nodes
@@ -522,6 +644,28 @@ class LoadedSavedModel:
     n_user = len(signature.input_arg) - len(captured)
     names = [a.name for a in signature.input_arg[:n_user]]
     return _Function(self, name, captured, concrete.output_signature, names)
+
+  def registered_gradient(self, op_type: str, fdef: tw.FunctionDef):
+    """(the gradient function registered for `op_type`, references in
+    `fdef` to the tensors it captures)."""
+    if op_type not in self._gradients:
+      raise UnsupportedGraphError(f'no gradient registered for {op_type}')
+    name = self._gradients[op_type]
+    refs = []
+    for bound in self._concrete[name].bound_inputs:
+      node = self._nodes[bound]
+      if (not node.HasField('captured_tensor')
+          or node.captured_tensor.concrete_function != fdef.signature.name):
+        raise UnsupportedGraphError(
+            f'{name} captures object {bound}, which is no tensor of '
+            f'{fdef.signature.name}')
+      refs.append(node.captured_tensor.name)  # 'node:index'
+    return name, refs
+
+  def gradient_outputs(self, name: str, flat) -> list:
+    """A gradient function's outputs in its output structure (None where
+    an input has no gradient)."""
+    return _pack(self._concrete[name].output_signature, list(flat))
 
   def __call__(self, *args, **kwargs):
     if self._call is None:

@@ -14,8 +14,11 @@ The table covers what the port's exported models hold: the MLP policy
 (`addmm`, `tanh`), the rate ensemble (`bmm`, batch norm in eval, `silu`,
 `softplus`, `_softmax`, `mean`), the UNet and GlobalLocalUNet
 (`convolution` forward and transposed, `native_layer_norm`, tanh `gelu`,
-`max_pool2d_with_indices`, `cat`, `slice`) and the views between them.
-Float32 only.
+`max_pool2d_with_indices`, `cat`, `slice`) and the views between them;
+and what their vector-Jacobian products reduce to (`export_vjp`):
+`convolution_backward` (the input's gradient as a convolution),
+`max_pool2d_with_indices_backward` (`select_and_scatter`), `silu_backward`,
+`slice_scatter` (`pad`), `mm`, `sum`, `div`, `neg`, `full`. Float32 only.
 """
 
 from __future__ import annotations
@@ -54,13 +57,16 @@ def tensor_type(shape: Sequence[int], element: Type = F32) -> Type:
 
 
 def dense(array, element: Type = None) -> Attr:
-  """A `tensor_v1` attribute holding `array` (row-major bytes; a bool
-  array one byte an element)."""
+  """A `tensor_v1` attribute holding `array`: row-major bytes, a bool
+  array packed eight elements a byte, the first in the lowest bit (MLIR's
+  i1 storage, which JAX writes and TF reads)."""
   array = np.asarray(array)
   if element is None:
     element = {np.dtype(np.float32): F32, np.dtype(np.bool_): I1,
                np.dtype(np.int32): I32, np.dtype(np.int64): I64}[array.dtype]
-  data = np.ascontiguousarray(array.astype(_NUMPY_OF[element.kind])).tobytes()
+  values = np.ascontiguousarray(array.astype(_NUMPY_OF[element.kind]))
+  data = (np.packbits(values.reshape(-1), bitorder='little').tobytes()
+          if element == I1 else values.tobytes())
   return Attr('vhlo', 'tensor_v1', (tensor_type(array.shape, element), data))
 
 
@@ -86,9 +92,6 @@ class _Builder:
 
   def __init__(self):
     self.ops: List[mb.Op] = []
-    # id of a constant's _T -> its array (a transposed convolution flips
-    # its kernel at export time).
-    self.constants: Dict[int, np.ndarray] = {}
 
   def op(self, name: str, operands: Sequence[_T], shapes, elements=None,
          props: Optional[dict] = None, regions=()) -> List[_T]:
@@ -188,14 +191,19 @@ class _Builder:
         'rhs_precision_type': NONE})
 
 
-def _reduce_body(op_name: str) -> mb.Region:
-  scalar = tensor_type(())
-  a, b = Value(scalar, UNKNOWN_LOC), Value(scalar, UNKNOWN_LOC)
-  out = Value(scalar)
+def _body(arg_types, op_name: str, element: Type = F32,
+          props: Optional[dict] = None) -> mb.Region:
+  """A region of one op of its two scalar block arguments."""
+  a, b = (Value(t, UNKNOWN_LOC) for t in arg_types)
+  out = Value(tensor_type((), element))
   ops = [mb.Op(name=f'vhlo.{op_name}', loc=UNKNOWN_LOC, operands=[a, b],
-               results=[out]),
+               results=[out], props=props),
          mb.Op(name='vhlo.return_v1', loc=UNKNOWN_LOC, operands=[out])]
   return mb.Region([mb.Block(args=[a, b], ops=ops)])
+
+
+def _reduce_body(op_name: str) -> mb.Region:
+  return _body([tensor_type(())] * 2, op_name)
 
 
 # --- the aten table ----------------------------------------------------------
@@ -210,6 +218,9 @@ def _register(*ops):
       _ATEN[op] = fn
     return fn
   return wrap
+
+
+_GE = 2  # comparison_direction_v1's GE
 
 
 def _dim(d: int, rank: int) -> int:
@@ -284,6 +295,11 @@ def _bmm(b, x, y):
   return b.dot(x, y, [0], [0], [2], [1])
 
 
+@_register(aten.mm.default)
+def _mm(b, x, y):
+  return b.dot(x, y, [], [], [1], [0])
+
+
 @_register(aten.addmm.default)
 def _addmm(b, bias, x, y, beta=1, alpha=1):
   out = b.dot(x, y, [], [], [1], [0])
@@ -333,6 +349,68 @@ for _op, _name in ((aten.rsqrt.default, 'rsqrt_v2'),
                    (aten.exp.default, 'exponential_v2'),
                    (aten.log1p.default, 'log_plus_one_v2')):
   _ATEN[_op] = _unary(_name)
+
+
+@_register(aten.alias.default, aten.clone.default)
+def _alias(b, x, memory_format=None):
+  del b, memory_format
+  return x
+
+
+@_register(aten.full.default)
+def _full(b, size, fill_value, dtype=None, layout=None, device=None,
+          pin_memory=None):
+  del layout, device, pin_memory
+  if dtype not in (None, torch.float32):
+    raise UnsupportedAtenOpError(f'aten.full of {dtype}')
+  return b.broadcast(b.scalar(float(fill_value)), list(size))
+
+
+@_register(aten.sum.dim_IntList)
+def _sum(b, x, dims, keepdim=False, dtype=None):
+  del dtype
+  dims = list(range(len(x.shape))) if not dims else list(dims)
+  return _keep(b, b.reduce('add', x, dims), x, dims, keepdim)
+
+
+@_register(aten.div.Tensor, aten.div.Scalar)
+def _div(b, x, y):
+  if not isinstance(x, _T):
+    x = b.scalar(float(x))
+  return b.binary('divide_v1', x, y)
+
+
+_register(aten.neg.default)(lambda b, x: b.unary('negate_v1', x))
+
+
+@_register(aten.silu_backward.default)
+def _silu_backward(b, grad, x):
+  """grad sigmoid(x) (1 + x (1 - sigmoid(x)))."""
+  s = b.unary('logistic_v2', x)
+  inner = b.binary('add_v1', b.binary('multiply_v1', x, b.binary(
+      'subtract_v1', b.scalar(1.0), s)), 1.0)
+  return b.binary('multiply_v1', grad, b.binary('multiply_v1', s, inner))
+
+
+@_register(aten.slice_scatter.default)
+def _slice_scatter(b, x, src, dim=0, start=None, end=None, step=1):
+  """x with src written over x[start:end:step] along dim: src padded out
+  to x's shape (as JAX transposes a slice), then selected where ones
+  padded the same way are 1 (a mask made of ops, so that no constant of
+  x's size is written)."""
+  dim = _dim(dim, len(x.shape))
+  start, end, step = slice(start, end, step).indices(x.shape[dim])
+  low, high, interior = ([0] * len(x.shape) for _ in range(3))
+  low[dim] = start
+  interior[dim] = step - 1
+  high[dim] = x.shape[dim] - (start + (src.shape[dim] - 1) * step + 1)
+  pads = {'edge_padding_high': i64s(high), 'edge_padding_low': i64s(low),
+          'interior_padding': i64s(interior)}
+  padded = b.one('pad_v1', [src, b.scalar(0.0)], x.shape, F32, pads)
+  ones = b.broadcast(b.scalar(1.0), src.shape)
+  mask = b.one('pad_v1', [ones, b.scalar(0.0)], x.shape, F32, pads)
+  where = b.compare(3, mask, 0.0)  # GT
+  return b.one('select_v1', [where, padded, x], x.shape, F32)
 
 
 @_register(aten.gt.Scalar)
@@ -413,17 +491,17 @@ def _layer_norm(b, x, normalized_shape, weight, bias, eps):
 def _convolution(b, x, w, bias, stride, padding, dilation, transposed,
                  output_padding, groups):
   n = len(x.shape) - 2
-  weight = b.constants.get(id(w))
   if transposed:
-    if weight is None:
-      raise UnsupportedAtenOpError('a transposed aten.convolution of a '
-                                   'weight that is not a constant')
     if groups != 1:
       raise UnsupportedAtenOpError('a grouped transposed aten.convolution')
-    # (in, out, k...) flipped -> the forward kernel (out, in, k...) over
-    # the input dilated by the stride.
-    flipped = np.flip(weight, axis=tuple(range(2, 2 + n)))
-    w = b.constant(np.ascontiguousarray(np.swapaxes(flipped, 0, 1)))
+    # (in, out, k...) reversed over k and transposed -> the forward kernel
+    # (out, in, k...) over the input dilated by the stride, as JAX lowers
+    # it (the weights stay stored once; the interpreter folds both ops).
+    spatial = list(range(2, 2 + n))
+    w = b.one('reverse_v1', [w], w.shape, F32,
+              {'dimensions': i64s(spatial)})
+    w = b.one('transpose_v1', [w], [w.shape[1], w.shape[0], *w.shape[2:]],
+              F32, {'permutation': i64s([1, 0] + spatial)})
     k = w.shape[2:]
     lhs_dilation = list(stride)
     pads = []
@@ -464,6 +542,35 @@ def _convolution(b, x, w, bias, stride, padding, dilation, transposed,
   return out
 
 
+@_register(aten.convolution_backward.default)
+def _convolution_backward(b, grad, x, w, bias_sizes, stride, padding,
+                          dilation, transposed, output_padding, groups,
+                          output_mask):
+  """The input's gradient: the transposed convolution of a forward one,
+  the forward convolution of a transposed one. The weights are constants,
+  so their gradients are never asked for."""
+  del bias_sizes, output_padding
+  if not output_mask[0]:
+    return (None, None, None)
+  n = len(x.shape) - 2
+  if transposed:
+    # A transposed convolution's kernel (in, out, k...) is a forward
+    # kernel from its output channels back to its input channels.
+    out = _convolution(b, grad, w, None, stride, padding, dilation, False,
+                       [0] * n, groups)
+  else:
+    k = w.shape[2:]
+    extra = [x.shape[2 + j] - ((grad.shape[2 + j] - 1) * stride[j]
+                               - 2 * padding[j] + dilation[j] * (k[j] - 1)
+                               + 1) for j in range(n)]
+    out = _convolution(b, grad, w, None, stride, padding, dilation, True,
+                       extra, groups)
+  if tuple(out.shape) != tuple(x.shape):
+    raise UnsupportedAtenOpError(
+        f'aten.convolution_backward gave {out.shape}, not {x.shape}')
+  return (out, None, None)
+
+
 @_register(aten.max_pool2d_with_indices.default)
 def _max_pool(b, x, kernel, stride=(), padding=(0, 0), dilation=(1, 1),
               ceil_mode=False):
@@ -485,7 +592,41 @@ def _max_pool(b, x, kernel, stride=(), padding=(0, 0), dilation=(1, 1),
       'padding': dense(np.asarray(pads, np.int64).reshape(rank, 2), I64),
       'window_dilations': i64s(dil), 'window_dimensions': i64s(window),
       'window_strides': i64s(strides)}, [_reduce_body('maximum_v1')])
-  return (out, None)
+  return (out, _POOL_INDICES)
+
+
+class _PoolIndices:
+  """What stands for max pooling's indices: its backward (below) selects
+  from the pooled input again, as JAX's VJP does, and reads nothing
+  else of them."""
+
+
+_POOL_INDICES = _PoolIndices()
+
+
+@_register(aten.max_pool2d_with_indices_backward.default)
+def _max_pool_backward(b, grad, x, kernel, stride=(), padding=(0, 0),
+                       dilation=(1, 1), ceil_mode=False, indices=None):
+  """The gradient reaches the first largest element of each window
+  (torch's index, and `select_and_scatter` with GE, as JAX lowers it)."""
+  del indices
+  stride = list(stride) or list(kernel)
+  if ceil_mode or any(padding) or any(d != 1 for d in dilation):
+    raise UnsupportedAtenOpError(
+        'aten.max_pool2d_with_indices_backward with padding, dilation or '
+        'ceil_mode')
+  rank = len(x.shape)
+  select = _body([tensor_type(())] * 2, 'compare_v1', I1, {
+      'compare_type': Attr('vhlo', 'comparison_type_v1', (1,)),
+      'comparison_direction': Attr('vhlo', 'comparison_direction_v1',
+                                   (_GE,))})
+  scatter = _reduce_body('add_v1')
+  return b.one('select_and_scatter_v1', [x, grad, b.scalar(0.0)], x.shape,
+               F32, {
+                   'padding': dense(np.zeros((rank, 2), np.int64), I64),
+                   'window_dimensions': i64s([1] * (rank - 2) + list(kernel)),
+                   'window_strides': i64s([1] * (rank - 2) + stride)},
+               [select, scatter])
 
 
 @_register(operator.getitem)
@@ -493,7 +634,8 @@ def _getitem(b, values, index):
   del b
   value = values[index]
   if value is None:
-    raise UnsupportedAtenOpError('the indices of aten.max_pool2d_with_indices')
+    raise UnsupportedAtenOpError('a gradient of a weight (weights are '
+                                 'constants of the export)')
   return value
 
 
@@ -518,10 +660,50 @@ def export(fn, input_shape: Sequence[int], device
   `jax.global_constant`), as a JAX export for several platforms does: the
   module is the same on each."""
   module = fn if isinstance(fn, torch.nn.Module) else _Wrap(fn)
-  example = torch.zeros(tuple(input_shape), dtype=torch.float32,
-                        device=device)
+  return _export(module, [tuple(input_shape)], device)
+
+
+class _Vjp(torch.nn.Module):
+  """(x, cotangents...) -> the cotangent of x: autograd's vector-Jacobian
+  product of fn at x."""
+
+  def __init__(self, fn):
+    super().__init__()
+    self.fn = fn
+
+  def forward(self, x, *cotangents):
+    with torch.enable_grad():
+      x = x.detach().requires_grad_(True)
+      out = self.fn(x)
+      outs = out if isinstance(out, (tuple, list)) else (out,)
+      return torch.autograd.grad(outs, x, cotangents)[0]
+
+
+def export_vjp(fn, input_shape: Sequence[int], out_shapes, device
+               ) -> mb.Module:
+  """The module of fn's vector-Jacobian product at `input_shape`: `main`
+  takes the platform index, x and one cotangent an output (`out_shapes`)
+  and returns the cotangent of x, as the VJP module of a JAX export with
+  gradients does. Autograd's graph of the product is recorded by
+  `make_fx` (torch.export's tracer, which keeps the backward ops whole;
+  `torch.export` of `autograd.grad` itself fails in torch 2.13), then
+  exported and lowered as `export` lowers a forward function."""
+  from torch.fx.experimental import proxy_tensor
+
+  module = fn if isinstance(fn, torch.nn.Module) else _Wrap(fn)
+  shapes = [tuple(input_shape)] + [tuple(s) for s in out_shapes]
+  examples = [torch.zeros(s, dtype=torch.float32, device=device)
+              for s in shapes]
+  graph = proxy_tensor.make_fx(_Vjp(module))(*examples)
+  return _export(graph, shapes, device)[0]
+
+
+def _export(module: torch.nn.Module, input_shapes, device
+            ) -> Tuple[mb.Module, list, bool]:
+  examples = tuple(torch.zeros(s, dtype=torch.float32, device=device)
+                   for s in input_shapes)
   with torch.no_grad():
-    program = torch.export.export(module, (example,)).run_decompositions()
+    program = torch.export.export(module, examples).run_decompositions()
   graph_signature = program.graph_signature
   state = dict(program.state_dict)
   state.update(getattr(program, 'constants', {}) or {})
@@ -534,21 +716,20 @@ def export(fn, input_shape: Sequence[int], device
   args = [Value(tensor_type((), I32), UNKNOWN_LOC)]
   env: Dict[str, object] = {}
   outputs = None
+  user_shapes = iter(input_shapes)
   for node in program.graph.nodes:
     if node.op == 'placeholder':
       if node.name in lifted:
         value = lifted[node.name].detach().to('cpu')
-        if value.dtype != torch.float32:
+        if value.dtype not in (torch.float32, torch.bool):
           raise UnsupportedAtenOpError(
               f'a {value.dtype} weight or buffer ({node.name})')
-        array = value.numpy()
-        t = b.constant(array)
-        b.constants[id(t)] = array
-        env[node.name] = t
+        env[node.name] = b.constant(value.numpy())
       else:
-        v = Value(tensor_type(input_shape), UNKNOWN_LOC)
+        shape = next(user_shapes)
+        v = Value(tensor_type(shape), UNKNOWN_LOC)
         args.append(v)
-        env[node.name] = _T(v, input_shape)
+        env[node.name] = _T(v, shape)
     elif node.op == 'call_function':
       handler = _ATEN.get(node.target)
       if handler is None:
@@ -576,9 +757,9 @@ def export(fn, input_shape: Sequence[int], device
 
 
 def _live(ops: List[mb.Op]) -> List[mb.Op]:
-  """The ops whose results are used, and the return: a weight that only
-  fed a kernel flipped at export time (or a value an op computes but no
-  output needs) is not written."""
+  """The ops whose results are used, and the return: a value an op
+  computes but no output needs (a weight gradient's operands, the indices
+  of a max pool) is not written."""
   used = set()
   kept = []
   for op in reversed(ops):

@@ -19,9 +19,10 @@ random_forest or svm) fit the port's own classifiers
 (`putting_dune_torch/classifiers/`, float64 on the device) with the JAX
 CLI's hyperparameters: a bootstrap ensemble of --num_models standardised
 classifiers on the context columns and the beam position, each scored on
-its out-of-bag rows, written as `{type}_{i}.npz` and `{type}_ensemble.npz`
-(the port's format, `classifiers.joblib_io`; the JAX CLI writes
-`.joblib`), `metrics.npz` with `train_accuracy` / `test_accuracy`, and the
+its out-of-bag rows, written as `{type}_{i}.joblib` and the soft
+`{type}_ensemble.joblib`, the files the JAX CLI's `joblib.dump` writes
+(`classifiers.joblib_io.dump`: sklearn's `joblib.load` reads them),
+`metrics.npz` with `train_accuracy` / `test_accuracy`, and the
 averaged `predict_proba[..., 1:]` as the rates of `avg_context_rates.png`.
 The models that draw (MLP, forest, SVC) are seeded from --seed, one
 `RandomState(seed).randint(2**31 - 1)` a model.
@@ -371,12 +372,12 @@ def _classical(args: Args, learner_type: LearnerType, stacked):
           f'accuracy {test_acc:.4f} ({len(train_data["next_state"])} rows; '
           f'fitted tensors on {model.step_estimators[0].mean_.device})',
           flush=True)
-    joblib_io.save(model, os.path.join(
+    joblib_io.dump(model, os.path.join(
         args.workdir, f'{args.learner_type}_{i}{joblib_io.SUFFIX}'))
     models.append(model)
     train_accs.append(train_acc)
     test_accs.append(test_acc)
-  joblib_io.save(
+  joblib_io.dump(
       ensemble_lib.VotingClassifier(
           [(f'{args.learner_type}_{i}', m) for i, m in enumerate(models)]),
       os.path.join(args.workdir,

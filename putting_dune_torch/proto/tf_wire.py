@@ -125,8 +125,13 @@ _fields(FunctionDef,
         _f(6, 'control_ret', MESSAGE, map_value=(STRING, None)))
 FunctionDefLibrary = _msg('FunctionDefLibrary',
                           'tensorflow.FunctionDefLibrary')
+RegisteredGradient = _msg('RegisteredGradient', 'tensorflow.RegisteredGradient')
+_fields(RegisteredGradient, _f(1, 'gradient_func', STRING),
+        _f(2, 'registered_op_type', STRING))
 _fields(FunctionDefLibrary,
-        _f(1, 'function', MESSAGE, repeated=True, message=FunctionDef))
+        _f(1, 'function', MESSAGE, repeated=True, message=FunctionDef),
+        _f(3, 'registered_gradients', MESSAGE, repeated=True,
+           message=RegisteredGradient))
 
 GraphDef = _msg('GraphDef', 'tensorflow.GraphDef')
 _fields(GraphDef, _f(1, 'node', MESSAGE, repeated=True, message=NodeDef),
@@ -312,7 +317,8 @@ _fields(BundleEntryProto, _f(1, 'dtype', INT32),
 MESSAGES = (
     VersionDef, NameAttrList, AttrValue, AttrValueListValue, NodeDef,
     OpDefArgDef, OpDefAttrDef, OpDef, OpList, FunctionDefArgAttrs,
-    FunctionDefArgAttrEntry, FunctionDef, FunctionDefLibrary, GraphDef,
+    FunctionDefArgAttrEntry, FunctionDef, RegisteredGradient,
+    FunctionDefLibrary, GraphDef,
     MetaInfoDef, SaverDef, CollectionDefNodeList, CollectionDef, TensorInfo,
     SignatureDef, NoneValue, StructuredValue, ListValue, TupleValue,
     DictValue, PairValue, NamedTupleValue, TensorSpecProto, ObjectReference,

@@ -50,10 +50,15 @@ class SimulatorSpec:
   drift_per_frame_angstroms: float = 0.0
 
 
+AgentConstructor = Callable[[np.random.Generator, AdaptersAndGoal], Any]
+AdaptersAndGoalConstructor = Callable[[], AdaptersAndGoal]
+SimulatorSpecConstructor = Callable[[], SimulatorSpec]
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainExperiment:
-  get_adapters_and_goal: Callable[[], AdaptersAndGoal]
-  get_simulator_config: Callable[[], SimulatorSpec]
+  get_adapters_and_goal: AdaptersAndGoalConstructor
+  get_simulator_config: SimulatorSpecConstructor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +67,8 @@ class EvalExperiment:
   agent; otherwise `get_policy`'s agent is also the host agent."""
 
   get_policy: Callable[[AdaptersAndGoal, Any], Callable]
-  get_adapters_and_goal: Callable[[], AdaptersAndGoal]
-  get_simulator_config: Callable[[], SimulatorSpec]
+  get_adapters_and_goal: AdaptersAndGoalConstructor
+  get_simulator_config: SimulatorSpecConstructor
   get_agent: Optional[Callable] = None
 
 
@@ -73,7 +78,7 @@ class MicroscopeExperiment:
   adapters_and_goal, device=None) -> host agent."""
 
   get_agent: Callable
-  get_adapters_and_goal: Callable[[], AdaptersAndGoal]
+  get_adapters_and_goal: AdaptersAndGoalConstructor
 
 
 def host_agent(experiment: EvalExperiment, rng: np.random.Generator,

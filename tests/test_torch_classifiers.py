@@ -214,7 +214,7 @@ def test_gp_fits_sklearns_hyperparameters(classes):
   binaries = (sk.base_estimator_.estimators_ if classes > 2
               else [sk.base_estimator_])
   for a, b in zip(pt.estimators_, binaries):
-    np.testing.assert_allclose(a.theta.numpy(), b.kernel_.theta, rtol=0,
+    np.testing.assert_allclose(np.log(a.scales), b.kernel_.theta, rtol=0,
                                atol=1e-3)
   q = _queries(10)
   np.testing.assert_allclose(pt.predict_proba(q), sk.predict_proba(q),

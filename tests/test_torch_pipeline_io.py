@@ -241,8 +241,9 @@ def test_train_rate_learner_refuses_what_is_not_ported(monkeypatch, tmp_path,
                                                       source, learner):
   # The five classical learner types used to be refused; they are ported
   # now (classifiers/), so both packages' CLIs train them on the same
-  # stacked data (2 models, no augmentation), write the same kinds of
-  # files, and the port reads the JAX CLI's ensemble file to its rates.
+  # stacked data (2 models, no augmentation), write the same files, the
+  # port reads the JAX CLI's ensemble file to its rates, and sklearn reads
+  # the port's.
   monkeypatch.setattr(sys, 'argv', ['cli'])
   kw = dict(source_path=source, num_models=2, augment_data=False,
             learner_type=learner, epochs=60, plot_metrics=False,
@@ -255,12 +256,9 @@ def test_train_rate_learner_refuses_what_is_not_ported(monkeypatch, tmp_path,
   for key in ('next_state', 'context', 'dt', 'position'):
     np.testing.assert_array_equal(t_stacked[key], j_stacked[key])
   names = [f'{learner}_0', f'{learner}_1', f'{learner}_ensemble']
-  assert sorted(os.listdir(j_dir)) == sorted(
+  assert sorted(os.listdir(j_dir)) == sorted(os.listdir(t_dir)) == sorted(
       [f'{n}.joblib' for n in names] + ['avg_context_rates.png',
                                         'metrics.npz'])
-  assert sorted(os.listdir(t_dir)) == sorted(
-      [f'{n}{t_joblib_io.SUFFIX}' for n in names] + [
-          'avg_context_rates.png', 'metrics.npz'])
   j_metrics = np.load(os.path.join(j_dir, 'metrics.npz'))
   t_metrics = np.load(os.path.join(t_dir, 'metrics.npz'))
   for key in ('train_accuracy', 'test_accuracy'):
@@ -284,9 +282,19 @@ def test_train_rate_learner_refuses_what_is_not_ported(monkeypatch, tmp_path,
   got = np.mean([m.predict_proba(x)[..., 1:] for m in ens.estimators_],
                 axis=0)
   np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)
-  # The port's own ensemble file reads back to the models it wrote.
-  own = t_joblib_io.load(os.path.join(
-      t_dir, f'{learner}_ensemble{t_joblib_io.SUFFIX}'), device='cpu')
+  # The port's ensemble file, loaded by sklearn, gives the port CLI's rate
+  # function; the port's reader reads it back to the models it wrote.
+  sk_ens = joblib.load(os.path.join(t_dir, f'{learner}_ensemble.joblib'))
+  want = np.mean([m.predict_proba(x)[..., 1:] for m in models], axis=0)
+  got = np.mean([m.predict_proba(x)[..., 1:] for m in sk_ens.estimators_],
+                axis=0)
+  np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)
+  np.testing.assert_allclose(
+      sk_ens.predict_proba(x),
+      np.mean([m.predict_proba(x) for m in models], axis=0), rtol=0,
+      atol=1e-10)
+  own = t_joblib_io.load(os.path.join(t_dir, f'{learner}_ensemble.joblib'),
+                         device='cpu')
   np.testing.assert_allclose(
       own.predict_proba(x),
       np.mean([m.predict_proba(x) for m in models], axis=0), rtol=0,

@@ -366,10 +366,140 @@ def test_loader_reads_variables_and_refuses_plain_tf_graphs(tmp_path):
     loaded(x)
 
 
-def test_export_with_gradient_names_the_roadmap(tmp_path):
-  with pytest.raises(NotImplementedError, match='ROADMAP queue 1'):
-    t_tf_export.export_tf_saved_model(lambda x: x * 2.0, (2,),
-                                      str(tmp_path / 'g'), with_gradient=True)
+def _saved_graph(save_dir):
+  with open(pathlib.Path(save_dir) / 'saved_model.pb', 'rb') as f:
+    return tf_wire.SavedModel.FromString(f.read()).meta_graphs[0]
+
+
+def test_export_with_gradient_has_jaxs_layout(tmp_path):
+  """As jax2tf saves a gradient: the converted function's outputs and
+  input pass an IdentityN whose `_gradient_op_type` the library registers
+  to a gradient function; that function's XlaCallModule takes the captured
+  input and one cotangent an output, and the object graph binds the
+  capture."""
+  jax = pytest.importorskip('jax')
+  from putting_dune_tpu.io import tf_export as j_tf_export  # pylint: disable=g-import-not-at-top
+
+  w = np.random.default_rng(0).standard_normal((3, 2)).astype(np.float32)
+  j_tf_export.export_tf_saved_model(
+      jax.jit(lambda x: (jax.numpy.tanh(x @ w), x.sum())), (4, 3),
+      str(tmp_path / 'jax'), with_gradient=True)
+
+  def fn(x):
+    return torch.tanh(x @ torch.from_numpy(w)), x.sum()
+
+  t_tf_export.export_tf_saved_model(fn, (4, 3), str(tmp_path / 'port'),
+                                    with_gradient=True)
+  for tag in ('jax', 'port'):
+    meta = _saved_graph(tmp_path / tag)
+    library = meta.graph_def.library
+    (registered,) = library.registered_gradients
+    functions = {f.signature.name: f for f in library.function}
+    converted = [f for f in functions.values()
+                 if any(n.op == 'IdentityN' and '_gradient_op_type' in n.attr
+                        for n in f.node_def)
+                 and 'converted_fun' in f.signature.name]
+    (identity_n,) = [n for n in converted[0].node_def if n.op == 'IdentityN']
+    assert (identity_n.attr['_gradient_op_type'].s.decode()
+            == registered.registered_op_type)
+    assert len(identity_n.input) == 3  # two outputs and the input
+    grad = functions[registered.gradient_func]
+    assert [a.name for a in grad.signature.input_arg][:3] == [
+        'result_grads_0', 'result_grads_1', 'result_grads_2']
+    (call,) = [n for n in grad.node_def if n.op == 'XlaCallModule']
+    assert len(call.input) == 3 and len(call.attr['Tout'].list.type) == 1
+    concrete = meta.object_graph_def.concrete_functions[
+        registered.gradient_func]
+    (bound,) = concrete.bound_inputs
+    capture = meta.object_graph_def.nodes[bound].captured_tensor
+    assert capture.name == 'jax2tf_arg_0:0'
+    assert capture.concrete_function == converted[0].signature.name
+  x = np.random.default_rng(1).standard_normal((4, 3)).astype(np.float32)
+  cotangents = [np.ones((4, 2), np.float32), np.float32(2.0)]
+  for tag in ('jax', 'port'):
+    np.testing.assert_allclose(
+        torch_tf_checks.tf_gradient(tmp_path / tag, x, cotangents),
+        torch_tf_checks.port_gradient(tmp_path / tag, x, cotangents),
+        rtol=0, atol=1e-6)
+
+
+class _Masked(torch.nn.Module):
+
+  def __init__(self, mask):
+    super().__init__()
+    self.register_buffer('mask', torch.from_numpy(mask))
+
+  def forward(self, x):
+    return torch.where(self.mask, x, -x)
+
+
+_RNG = np.random.default_rng(5)
+# Under a byte (the byte 0x06, which is no splat), a whole byte of ones
+# (0xff, MLIR's splat byte), and a few bytes.
+MASKS = {'under_a_byte': np.array([False, True, True]),
+         'a_byte_of_ones': np.ones(8, bool),
+         'two_bytes': _RNG.random(12) < 0.5,
+         'eight_bytes': _RNG.random(64) < 0.5}
+
+
+@pytest.mark.parametrize('name', MASKS)
+def test_bool_constants_read_as_tensorflow_reads_them(tmp_path, name):
+  """A bool constant, a bool buffer in the port's export and a captured
+  mask in JAX's: TF and the port's loader give the function's output on
+  both exports."""
+  jax = pytest.importorskip('jax')
+  from putting_dune_tpu.io import tf_export as j_tf_export  # pylint: disable=g-import-not-at-top
+
+  mask = MASKS[name]
+  size = mask.size
+  module = _Masked(mask)
+  t_tf_export.export_tf_saved_model(module, (size,), str(tmp_path / 'port'))
+  j_tf_export.export_tf_saved_model(
+      jax.jit(lambda x: jax.numpy.where(mask, x, -x)), (size,),
+      str(tmp_path / 'jax'))
+  x = np.random.default_rng(size).standard_normal(size).astype(np.float32)
+  want = module(torch.from_numpy(x)).numpy()
+  for tag in ('port', 'jax'):
+    np.testing.assert_array_equal(
+        tf.saved_model.load(str(tmp_path / tag))(x).numpy(), want)
+    np.testing.assert_array_equal(
+        t_tf_export.load_tf_saved_model(str(tmp_path / tag), device='cpu')(
+            torch.from_numpy(x)).numpy(), want)
+
+
+def test_loader_without_a_gradient_stops_it(tmp_path):
+  t_tf_export.export_tf_saved_model(lambda x: x * 2.0, (2,),
+                                    str(tmp_path / 'g'))
+  loaded = t_tf_export.load_tf_saved_model(str(tmp_path / 'g'), device='cpu')
+  x = torch.ones(2, requires_grad=True)
+  assert not loaded(x).requires_grad
+
+
+@pytest.mark.parametrize('window,stride', [(2, 2), (3, 2), (3, 1)])
+def test_loader_differentiates_jax_pooling_exports(tmp_path, window, stride):
+  """JAX's VJP of max pooling (select_and_scatter, with the ties a ReLU
+  makes, in overlapping windows too), a pad and a flip, run by the
+  interpreter: jax.vjp's gradient."""
+  jax = pytest.importorskip('jax')
+  import flax.linen as nn  # pylint: disable=g-import-not-at-top
+  from putting_dune_tpu.io import tf_export as j_tf_export  # pylint: disable=g-import-not-at-top
+
+  jnp = jax.numpy
+
+  def fn(x):
+    y = nn.max_pool(jax.nn.relu(x), (window, window), (stride, stride))
+    return jnp.flip(jnp.pad(y, ((0, 0), (1, 2), (0, 1), (0, 0))), axis=1)
+
+  j_tf_export.export_tf_saved_model(jax.jit(fn), (1, 9, 9, 2),
+                                    str(tmp_path / 'jax'), with_gradient=True)
+  rng = np.random.default_rng(window * 10 + stride)
+  x = rng.standard_normal((1, 9, 9, 2)).astype(np.float32)
+  out, vjp = jax.vjp(fn, x)
+  cotangent = rng.standard_normal(out.shape).astype(np.float32)
+  (want,) = vjp(cotangent)
+  np.testing.assert_allclose(
+      torch_tf_checks.port_gradient(tmp_path / 'jax', x, [cotangent]),
+      np.asarray(want), rtol=0, atol=1e-6)
 
 
 def test_ports_export_loads_in_tensorflow_with_jaxs_structure(tmp_path):

@@ -12,6 +12,11 @@ shipped `rate_predictor`, plain and with a fixed context, and
 
 Tolerances: rtol 1e-5 / atol 1e-6 for the rate predictor, 1e-5 for the
 MLP (`torch_tf_checks.check`).
+
+With gradients (`with_gradient=True` in both packages): TF's
+`GradientTape` on the port's export, and the port's loader under autograd,
+equal torch autograd on the native module within 1e-6; the port's loader
+on the JAX package's export equals TF's gradient on it within 1e-6.
 """
 
 import json
@@ -35,6 +40,7 @@ from putting_dune_tpu.io import tf_export as j_tf_export
 from putting_dune_tpu.rate_learning import config as j_rl_config
 from putting_dune_tpu.rate_learning import predictor as j_predictor
 from torch_tf_checks import check
+from torch_tf_checks import check_gradients
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.filterwarnings('ignore::UserWarning',
@@ -87,3 +93,54 @@ def test_shipped_mlp_policy(tmp_path):
   x = np.random.default_rng(2).standard_normal(obs_dim).astype(np.float32)
   native = np.asarray(module.apply({'params': params}, x))
   check(tmp_path / 'jax', tmp_path / 'port', x, native, 1e-5, 1e-5)
+
+
+def test_shipped_mlp_policy_with_gradient(tmp_path):
+  path = str(WEIGHTS / '230422_ppo_v3_2s')
+  agent = j_eval_agent.EvalAgent.load(path)
+  module, params = agent._module, agent._params  # pylint: disable=protected-access
+  obs_dim = int(np.shape(params['Dense_0']['kernel'])[0])
+  j_tf_export.export_tf_saved_model(
+      lambda obs: module.apply({'params': params}, obs), (obs_dim,),
+      str(tmp_path / 'jax'), input_name='observation', with_gradient=True)
+  port_model = t_eval_agent.load_policy(path, device='cpu')
+  t_tf_export.export_tf_saved_model(port_model, (obs_dim,),
+                                    str(tmp_path / 'port'),
+                                    input_name='observation',
+                                    with_gradient=True)
+  x = np.random.default_rng(6).standard_normal(obs_dim).astype(np.float32)
+  check_gradients(tmp_path / 'jax', tmp_path / 'port', port_model, x, 1e-6)
+
+
+def test_shipped_rate_predictor_with_gradient(tmp_path):
+  """The ensemble mean that `export_tf` exports, with its gradient."""
+  from putting_dune_tpu.rate_learning import losses as j_losses  # pylint: disable=g-import-not-at-top
+
+  workdir = str(WEIGHTS / 'rate_predictor')
+  stored = json.loads((WEIGHTS / 'rate_predictor' / 'config.json').read_text())
+  stored.pop('num_models_current')
+  stored['hidden_dimensions'] = tuple(stored['hidden_dimensions'])
+  jax_pred = j_predictor.LearnedRatePredictor(
+      config=j_rl_config.RateLearningConfig(**stored))
+  jax_pred.load(workdir)
+
+  def apply_model(context):
+    out, _ = jax_pred._batch_apply(  # pylint: disable=protected-access
+        jax_pred.params, jax_pred.state, context, jax.random.PRNGKey(0),
+        False)
+    return j_losses.predicted_rates_to_per_neighbor(out).mean(0)
+
+  j_tf_export.export_tf_saved_model(jax.jit(apply_model), (1, 4),
+                                    str(tmp_path / 'jax'),
+                                    input_name='beam_position',
+                                    with_gradient=True)
+  port_pred = t_predictor.LearnedRatePredictor(
+      config=t_rl_config.RateLearningConfig(beam_units='angstroms'),
+      device='cpu')
+  port_pred.load(workdir)
+  mean = t_predictor._EnsembleMean(port_pred.model.eval(), None)  # pylint: disable=protected-access
+  t_tf_export.export_tf_saved_model(mean, (1, 4), str(tmp_path / 'port'),
+                                    input_name='beam_position',
+                                    with_gradient=True)
+  x = np.random.default_rng(7).standard_normal((1, 4)).astype(np.float32)
+  check_gradients(tmp_path / 'jax', tmp_path / 'port', mean, x, 1e-6)

@@ -9,6 +9,12 @@ within the JAX test's own rtol 1e-3 / atol 1e-4
 output structure. Both `save_model --export_tf` CLIs of the port write a
 SavedModel that TF and the port load with equal outputs, and print what
 the JAX CLIs print.
+
+With gradients (`with_gradient=True` in both packages), TF's
+`GradientTape` on the port's export and the port's loader under autograd
+equal torch autograd on the native module, and the port's loader on the
+JAX export equals TF's gradient on it, within 1e-4 of the largest
+gradient.
 """
 
 import os
@@ -35,6 +41,7 @@ from putting_dune_tpu.atom_detection import model as j_det_model
 from putting_dune_tpu.image_alignment import model as j_align_model
 from putting_dune_tpu.io import tf_export as j_tf_export
 from torch_tf_checks import check
+from torch_tf_checks import check_gradients
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.filterwarnings('ignore::UserWarning',
@@ -86,6 +93,47 @@ def test_aligner_at_small_widths(tmp_path):
       np.float32)
   native = tuple(np.asarray(o) for o in jax.jit(fn)(x))
   check(tmp_path / 'jax', tmp_path / 'port', x, native, 1e-3, 1e-4)
+
+
+def test_detector_with_gradient(tmp_path):
+  jax_params, flax_tree = _fixture_params('atom_detector')
+  module = j_det_model.UNet(features=(4, 8))
+  fn = lambda image: module.apply({'params': jax_params}, image)  # noqa: E731
+  j_tf_export.export_tf_saved_model(jax.jit(fn), (1, 32, 32, 1),
+                                    str(tmp_path / 'jax'), input_name='image',
+                                    with_gradient=True)
+  port_model = t_det_model.UNet(features=(4, 8))
+  port_model.load_state_dict(t_det_model.params_from_flax(flax_tree))
+  port_model.eval()
+  t_tf_export.export_tf_saved_model(port_model, (1, 32, 32, 1),
+                                    str(tmp_path / 'port'),
+                                    input_name='image', with_gradient=True)
+  x = np.random.default_rng(8).standard_normal((1, 32, 32, 1)).astype(
+      np.float32)
+  check_gradients(tmp_path / 'jax', tmp_path / 'port', port_model, x, 1e-4,
+                  relative=True)
+
+
+def test_aligner_with_gradient(tmp_path):
+  jax_params, flax_tree = _fixture_params('image_aligner')
+  module = j_align_model.GlobalLocalUNet(
+      local_output_size=9, global_output_size=6, features=(4, 8))
+
+  def fn(image):
+    local, global_out = module.apply({'params': jax_params}, image)
+    return local, global_out
+
+  j_tf_export.export_tf_saved_model(jax.jit(fn), (1, 32, 32, 3),
+                                    str(tmp_path / 'jax'), input_name='image',
+                                    with_gradient=True)
+  port_model = t_align_model.from_flax(flax_tree)
+  t_tf_export.export_tf_saved_model(port_model, (1, 32, 32, 3),
+                                    str(tmp_path / 'port'),
+                                    input_name='image', with_gradient=True)
+  x = np.random.default_rng(9).standard_normal((1, 32, 32, 3)).astype(
+      np.float32)
+  check_gradients(tmp_path / 'jax', tmp_path / 'port', port_model, x, 1e-4,
+                  relative=True)
 
 
 # --- the CLIs -------------------------------------------------------------------

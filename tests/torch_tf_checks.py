@@ -1,11 +1,13 @@
 """What the SavedModel interop tests hold a port export and a JAX export
-of the same weights to (tests/test_torch_tf_interop_{models,unets}.py)."""
+of the same weights to (tests/test_torch_tf_interop_{models,unets}.py),
+outputs and, for exports with gradients, gradients."""
 
 import ctypes
 import os
 
 import numpy as np
 import tensorflow as tf
+import torch
 
 from putting_dune_torch.io import tf_export as t_tf_export
 
@@ -81,3 +83,50 @@ def run_with_c_api(save_dir, input_op: str, x: np.ndarray,
   data = ctypes.cast(lib.TF_TensorData(vp(result[0])),
                      ctypes.POINTER(ctypes.c_float))
   return np.ctypeslib.as_array(data, tuple(out_shape)).copy()
+
+
+def tf_gradient(save_dir, x, cotangents) -> np.ndarray:
+  """TF's `GradientTape` gradient of sum(output * cotangent) in x through
+  the loaded SavedModel."""
+  loaded = tf.saved_model.load(str(save_dir))
+  xt = tf.constant(x)
+  with tf.GradientTape() as tape:
+    tape.watch(xt)
+    outs = flat(loaded(xt))
+    loss = tf.add_n([tf.reduce_sum(o * c) for o, c in zip(outs, cotangents)])
+  return tape.gradient(loss, xt).numpy()
+
+
+def port_gradient(save_dir, x, cotangents) -> np.ndarray:
+  """The same through the port's loader, under autograd."""
+  loaded = t_tf_export.load_tf_saved_model(str(save_dir), device='cpu')
+  xt = torch.tensor(x, requires_grad=True)
+  outs = flat(loaded(xt))
+  sum((o * torch.as_tensor(np.asarray(c))).sum() for o, c in zip(outs, cotangents)
+      ).backward()
+  return xt.grad.numpy()
+
+
+def check_gradients(jax_dir, port_dir, module, x, tol, relative=False):
+  """With-gradient exports: TF on the port's export, and the port's loader
+  on it, equal torch autograd on `module`; the port's loader on the JAX
+  package's export, and TF on the port's export, equal TF on the JAX
+  package's export (JAX's gradient of the same weights). Within `tol`,
+  times the largest gradient where `relative`."""
+  xt = torch.tensor(x, requires_grad=True)
+  outs = flat(module(xt))
+  rng = np.random.default_rng(11)
+  cotangents = [rng.standard_normal(tuple(o.shape)).astype(np.float32)
+                for o in outs]
+  sum((o * torch.as_tensor(np.asarray(c))).sum() for o, c in zip(outs, cotangents)
+      ).backward()
+  native = xt.grad.numpy()
+  atol = tol * float(np.abs(native).max()) if relative else tol
+  for got in (tf_gradient(port_dir, x, cotangents),
+              port_gradient(port_dir, x, cotangents)):
+    np.testing.assert_allclose(got, native, rtol=0, atol=atol)
+  want = tf_gradient(jax_dir, x, cotangents)
+  atol = tol * float(np.abs(want).max()) if relative else tol
+  for got in (port_gradient(jax_dir, x, cotangents),
+              tf_gradient(port_dir, x, cotangents)):
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
