@@ -252,7 +252,24 @@ Phases (any failure exits non-zero before the final line):
       `with_gradient=True` at full width and batch 1, reloaded on the
       card, their gradient by autograd through the loader held against
       native autograd in full float32: export seconds, MB, max|d|;
-  26. a `kernels` JSON line; 27. the result JSON line, last.
+  26. API parity, the keywords the JAX package takes: (a)
+      `ppo_simple_images_tf` through `create_batched_env` (batch 100,
+      512^2 render, small_eval) by `evaluate_batched` with `chunk_steps=1`
+      and with the default 64: identical results, success >= 0.95, env
+      steps/s of each and the launches of `noise_chain`, `clahe_hist_lut`
+      and `clahe_remap` printed; (b) the same with `max_steps=100`: every
+      episode that ended within 100 steps as in (a), every other one not
+      reached at 100 steps, the JAX evaluator's count; (c)
+      `greedy_simple_rates` on `create_batched_env(grid_columns=30)` at
+      batch 1000 (medium_eval): its lattice is `make_lattice(30)`, success
+      and actions to the JAX package's (GREEDY_GRID30_BAR,
+      GREEDY_GRID30_ACTIONS); (d) the shipped
+      `ppo_simple_images_tf` agent `.save`d and loaded back, and rebuilt
+      by `EvalAgent.from_actor_critic(agent.params, ...)`: both act with
+      max|d| 0 against the shipped agent on 100 frames of the env; (e)
+      `noise_chain` and the CLAHE pair held against their twins on the
+      frames (a) gave them;
+  27. a `kernels` JSON line; 28. the result JSON line, last.
 
 It imports nothing of JAX or of putting_dune_tpu (the shipped weights are
 read as data).
@@ -3033,6 +3050,188 @@ def _gaps_to_the_jax_package(dev, smi, tmp) -> dict:
   return out
 
 
+# Phase 26: the JAX package's keywords on the reference pixel loop and the
+# vector loop. On the 30-column lattice the JAX package's
+# `greedy_simple_rates` reaches the goal on 1000 of medium_eval's 1000 seeds
+# on the CPU, in 8.715 actions (standard error 0.123;
+# `scripts/eval_cpu_pair.py --experiment_name=greedy_simple_rates
+# --seeds=medium_eval --grid_columns=30 --batch_size=1000`): the port must
+# reach GREEDY_GRID30_BAR, and its actions lie within
+# GREEDY_GRID30_ACTIONS[1] of GREEDY_GRID30_ACTIONS[0].
+API_MAX_STEPS = 100
+GREEDY_GRID30_BAR = 0.99
+GREEDY_GRID30_ACTIONS = (8.715, 1.0)
+
+
+def api_parity(dev, smi, path_launches) -> dict:
+  """Phase 26 (see the module docstring); returns the numbers it read. Its
+  files are a temporary directory, removed after."""
+  import tempfile
+
+  recorded = {}
+  with tempfile.TemporaryDirectory(prefix='smoke_api_') as tmp:
+    with _recording_inputs(recorded):
+      out = _api_parity(dev, smi, path_launches, tmp)
+  out['twins'] = _hold_phase26_kernels(dev, recorded)
+  return out
+
+
+def _api_parity(dev, smi, path_launches, tmp) -> dict:
+  import math
+
+  import torch
+
+  from putting_dune_torch import eval as eval_cli
+  from putting_dune_torch import eval_lib
+  from putting_dune_torch import lattice as lattice_lib
+  from putting_dune_torch import registry
+  from putting_dune_torch import run_helpers
+  from putting_dune_torch.agents import eval_agent
+  from putting_dune_torch.env import env as env_lib
+  from putting_dune_torch.ops import _build
+
+  out = {}
+
+  # -- 26a. chunk_steps 1 and 64 at the reference pixel loop --------------------
+  name = 'ppo_simple_images_tf'
+  experiment = registry.create_eval_experiment(name)
+  seeds = list(eval_lib.EVAL_SUITES['small_eval'])
+
+  def pixel_env():
+    return run_helpers.create_batched_env(
+        experiment.get_adapters_and_goal, experiment.get_simulator_config,
+        batch_size=len(seeds), device=dev)
+
+  policy = eval_cli.policy_for_agent(
+      experiment.get_policy(experiment.get_adapters_and_goal(), dev))
+  runs = {}
+  for chunk in (1, 64):
+    env = pixel_env()
+    _build.reset_launches()
+    _sync(dev)
+    t0 = time.perf_counter()
+    results = eval_lib.evaluate_batched(env, policy, seeds,
+                                        chunk_steps=chunk)
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    counted = dict(_build.LAUNCHES)
+    path_launches[f'api_parity_chunk_{chunk}_512'] = counted
+    agg = eval_lib.aggregate_results(results)
+    steps = len(seeds) * max(r.num_actions_taken for r in results)
+    kernels = {k: counted[k] for k in ('noise_chain', 'clahe_hist_lut',
+                                       'clahe_remap')}
+    print(f'26a {name} small_eval chunk_steps={chunk}: success '
+          f'{agg.average_num_times_reached_goal}, actions '
+          f'{agg.average_num_actions_taken:.2f}, {steps} env steps in '
+          f'{seconds:.3f} s = {steps / seconds:.1f} env steps/s, launches '
+          f'{kernels} on {smi}', flush=True)
+    for kernel, count in kernels.items():
+      check(count > 0, f'26a: {kernel} was not launched')
+    check(agg.average_num_times_reached_goal >= 0.95,
+          f'26a: success {agg.average_num_times_reached_goal} at '
+          f'chunk_steps={chunk}')
+    runs[chunk] = results
+    out[f'chunk_{chunk}'] = dict(
+        success=agg.average_num_times_reached_goal,
+        actions=agg.average_num_actions_taken, seconds=seconds,
+        env_steps_per_s=steps / seconds, launches=kernels)
+  check(_same_results(runs[1], runs[64]),
+        '26a: chunk_steps=1 and chunk_steps=64 give different results')
+
+  # -- 26b. max_steps ------------------------------------------------------------
+  capped = eval_lib.evaluate_batched(pixel_env(), policy, seeds,
+                                     max_steps=API_MAX_STEPS)
+  at_cap = 0
+  for whole, cut in zip(runs[64], capped):
+    if whole.num_actions_taken <= API_MAX_STEPS:
+      check(_same_results([whole], [cut]),
+            f'26b: seed {cut.seed} differs under max_steps')
+    else:
+      at_cap += 1
+      check(not cut.reached_goal and cut.num_actions_taken == API_MAX_STEPS
+            and math.isnan(cut.environment_seconds_to_goal),
+            f'26b: seed {cut.seed} is not stopped at the cap')
+  print(f'26b max_steps={API_MAX_STEPS}: {at_cap} of {len(seeds)} episodes '
+        f'stopped at the cap, not reached; the other {len(seeds) - at_cap} '
+        'as without the cap', flush=True)
+  out['max_steps'] = dict(cap=API_MAX_STEPS, at_cap=at_cap)
+
+  # -- 26c. grid_columns ---------------------------------------------------------
+  greedy = registry.create_eval_experiment('greedy_simple_rates')
+  wide = list(eval_lib.EVAL_SUITES['medium_eval'])
+  env = run_helpers.create_batched_env(
+      greedy.get_adapters_and_goal, greedy.get_simulator_config,
+      batch_size=len(wide), grid_columns=30, device=dev)
+  want = lattice_lib.make_lattice(30, dev)
+  check(env.config.sim.grid_columns == 30
+        and torch.equal(env.lattice.positions, want.positions)
+        and torch.equal(env.lattice.neighbors, want.neighbors),
+        '26c: the env does not hold make_lattice(30)')
+  _sync(dev)
+  t0 = time.perf_counter()
+  results = eval_lib.evaluate_batched(
+      env, eval_cli.policy_for_agent(
+          greedy.get_policy(greedy.get_adapters_and_goal(), dev)), wide)
+  _sync(dev)
+  seconds = time.perf_counter() - t0
+  agg = eval_lib.aggregate_results(results)
+  print(f'26c greedy_simple_rates grid_columns=30 batch {len(wide)}: success '
+        f'{agg.average_num_times_reached_goal} (bar {GREEDY_GRID30_BAR}), '
+        f'actions {agg.average_num_actions_taken:.3f} (JAX '
+        f'{GREEDY_GRID30_ACTIONS[0]} +- {GREEDY_GRID30_ACTIONS[1]}), '
+        f'{seconds:.3f} s on {smi}', flush=True)
+  check(agg.average_num_times_reached_goal >= GREEDY_GRID30_BAR,
+        '26c: greedy success on the 30-column lattice')
+  check(abs(agg.average_num_actions_taken - GREEDY_GRID30_ACTIONS[0])
+        <= GREEDY_GRID30_ACTIONS[1],
+        '26c: greedy actions on the 30-column lattice')
+  out['grid_30'] = dict(success=agg.average_num_times_reached_goal,
+                        actions=agg.average_num_actions_taken,
+                        seconds=seconds)
+
+  # -- 26d. EvalAgent: save, params, from_actor_critic ---------------------------
+  shipped_dir = os.path.join(eval_agent.MODEL_WEIGHTS_DIR, name)
+  shipped = eval_agent.EvalAgent.load(shipped_dir, dev)
+  saved_dir = os.path.join(tmp, 'saved')
+  shipped.save(saved_dir)
+  reloaded = eval_agent.EvalAgent.load(saved_dir, dev)
+  with open(os.path.join(shipped_dir, 'policy.json')) as f:
+    arch = json.load(f)['arch']
+  rebuilt = eval_agent.EvalAgent.from_actor_critic(shipped.params, **arch,
+                                                   device=dev)
+  _, ts = pixel_env().reset(env_lib.make_generator(26, dev))
+  frames = ts.observation
+  want_actions = shipped.policy()(None, frames)
+  errs = {}
+  for label, agent in (('save -> load', reloaded),
+                       ('from_actor_critic', rebuilt)):
+    got = agent.policy()(None, frames)
+    check(got.device.type == dev.type, f'26d {label}: actions on {got.device}')
+    errs[label] = float((got - want_actions).abs().max())
+    print(f"26d {label}: actions on {got.device} for "
+          f"{tuple(frames['image'].shape)} frames, max|d| {errs[label]:.3g} "
+          'against the shipped agent (bar 0)', flush=True)
+    check(errs[label] == 0.0, f'26d {label}: actions differ')
+  out['agents_max_abs_err'] = errs
+  return out
+
+
+def _hold_phase26_kernels(dev, recorded) -> dict:
+  """Phase 26e: noise_chain and the CLAHE pair against their twins on the
+  frames the 512^2 evals gave them."""
+  import torch
+
+  gen = torch.Generator(device=dev).manual_seed(26)
+  return {
+      'noise_chain_512': _hold_noise_chain(
+          dev, _recorded(recorded, 'noise_chain', (100, 512, 512), '26e'),
+          "26e on the pixel eval's clean renders:", gen),
+      'clahe_pair_512': _hold_clahe_pair(
+          _recorded(recorded, 'clahe_hist_lut', (100, 512, 512), '26e'),
+          "26e clahe_hist_lut + clahe_remap on the pixel eval's frames"),
+  }
+
+
 # Phase 24: TF SavedModel interop and the authenticated GCS download.
 SAVED_MODEL_FIXTURES = os.path.join(ROOT, 'tests', 'data', 'torch_saved_models')
 # (rtol, atol) of the committed JAX fixtures against their recorded outputs:
@@ -4171,10 +4370,16 @@ def main() -> None:
     print(f'gaps to the JAX package summary ({time.perf_counter() - t0:.1f} '
           f's): {json.dumps(summary)}', flush=True)
 
-  print(f'phases 1-25 in {time.perf_counter() - t_smoke:.1f} s on {smi}',
+  # -- 26. API parity ------------------------------------------------------------
+  t0 = time.perf_counter()
+  summary = api_parity(dev, smi, path_launches)
+  print(f'API parity summary ({time.perf_counter() - t0:.1f} s): '
+        f'{json.dumps(summary)}', flush=True)
+
+  print(f'phases 1-26 in {time.perf_counter() - t_smoke:.1f} s on {smi}',
         flush=True)
 
-  # -- 26. kernels line --------------------------------------------------------
+  # -- 27. kernels line --------------------------------------------------------
   kernels = []
   for name, (ms, plain_ms, err, bound_ms, bound_by, source) in rows.items():
     by_path = {path: counts[name] for path, counts in path_launches.items()}

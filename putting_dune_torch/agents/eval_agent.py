@@ -14,7 +14,8 @@ Three kinds, each a module here:
 `load_policy` reads any of them; `save_policy` writes them in the layout
 and bytes the JAX package's EvalAgent.save writes, so checkpoints cross
 between the packages both ways. `EvalAgent` is a loaded policy as a host
-agent (dm_env `step`) with its batched `policy()`.
+agent (dm_env `step`) with its batched `policy()`, its flax-layout
+`params` and `save`.
 """
 
 from __future__ import annotations
@@ -283,6 +284,32 @@ class EvalAgent(agent_lib.Agent):
   def load(cls, load_dir: str, device=None) -> 'EvalAgent':
     """A saved policy directory (`load_policy`) on `device`."""
     return cls(load_policy(load_dir, device))
+
+  @classmethod
+  def from_actor_critic(cls, params, *, hidden, conv_features, action_dim,
+                        image_size=128, device=None) -> 'EvalAgent':
+    """An image actor-critic policy from flax-layout ActorCritic params
+    (the JAX package's `from_actor_critic`), on `device`; raises
+    ValueError where the params do not fit the architecture given."""
+    model = ppo.actor_critic_from_flax(params, image_size=image_size)
+    if (list(model.hidden_sizes) != list(hidden)
+        or list(model.conv_features) != list(conv_features)
+        or model.action_dim != action_dim):
+      raise ValueError(
+          f'params do not fit hidden={hidden}, conv_features='
+          f'{conv_features}, action_dim={action_dim}')
+    return cls(model.to(device_lib.resolve_device(device)))
+
+  @property
+  def params(self) -> dict:
+    """The frozen policy's parameters as the flax-layout numpy tree of the
+    JAX package's `EvalAgent.params` (e.g. to warm-start a run)."""
+    return policy_to_flax(self.model)
+
+  def save(self, save_dir: str) -> None:
+    """Writes the policy directory (`save_policy`) that both packages'
+    `EvalAgent.load` read."""
+    save_policy(self.model, save_dir)
 
   @property
   def device(self) -> torch.device:

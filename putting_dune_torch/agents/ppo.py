@@ -627,9 +627,10 @@ def as_policy(model: ActorCritic, env, config: PPOConfig) -> nn.Module:
 
 
 def as_eval_agent(model: ActorCritic, env, config: PPOConfig):
-  """Trained ActorCritic weights as a saveable `eval_agent.EvalAgent`
-  (an 'actor_critic' policy for image observations, an 'mlp' one
-  otherwise; see `as_policy`)."""
+  """Trained ActorCritic weights as an `eval_agent.EvalAgent` over
+  `as_policy`'s module: an 'actor_critic' policy for image observations,
+  an 'mlp' one otherwise. `agent.save(save_dir)` writes the checkpoint
+  that both packages load, and `agent.params` is its flax-layout tree."""
   from putting_dune_torch.agents import eval_agent  # eval_agent imports us
 
   return eval_agent.EvalAgent(as_policy(model, env, config))

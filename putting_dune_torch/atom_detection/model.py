@@ -2,7 +2,8 @@
 
 Port of putting_dune_tpu/atom_detection/model.py: encoder-decoder with
 skip connections, each block a 3x3 convolution + LayerNorm over channels
-(eps 1e-6, scale and bias) + tanh-approximated GELU, 2x2 max pooling on
+(eps 1e-6, scale and bias) + an activation (flax's `nn.gelu`, the
+tanh-approximated GELU, unless another is given), 2x2 max pooling on
 the way down, a stride-2 3x3 transposed convolution on the way up, and a
 1x1 head over the classes (background, carbon, silicon).
 
@@ -24,12 +25,18 @@ less its last output row and column.
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Callable, Mapping, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+  """flax's `nn.gelu`: GELU in its tanh approximation, the UNets' default
+  activation."""
+  return F.gelu(x, approximate='tanh')
 
 
 class _ChannelLayerNorm(nn.Module):
@@ -51,15 +58,17 @@ class _ChannelLayerNorm(nn.Module):
 
 class _Block(nn.Module):
   """k x k 'SAME' convolution (k odd, 3 by default) + channel LayerNorm +
-  tanh GELU."""
+  activation."""
 
-  def __init__(self, in_channels: int, width: int, kernel: int = 3):
+  def __init__(self, in_channels: int, width: int, kernel: int = 3,
+               activation: Callable = gelu):
     super().__init__()
     self.conv = nn.Conv2d(in_channels, width, kernel, padding=kernel // 2)
     self.norm = _ChannelLayerNorm(width)
+    self.activation = activation
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(self.norm(self.conv(x)), approximate='tanh')
+    return self.activation(self.norm(self.conv(x)))
 
 
 class _UpTranspose(nn.Module):
@@ -82,6 +91,7 @@ class UNet(nn.Module):
       num_classes: int = 3,
       features: Sequence[int] = (64, 128, 256, 512, 1024),
       in_channels: int = 1,
+      activation: Callable = gelu,
   ):
     super().__init__()
     self.features = tuple(features)
@@ -89,17 +99,19 @@ class UNet(nn.Module):
     levels = len(self.features) - 1
     down, channels = [], in_channels
     for width in self.features[:-1]:
-      down.append(_Block(channels, width))
+      down.append(_Block(channels, width, activation=activation))
       channels = width
     self.down = nn.ModuleList(down)
-    self.bottleneck = _Block(channels, self.features[-1])
+    self.bottleneck = _Block(channels, self.features[-1],
+                             activation=activation)
     # Indexed by depth, like the JAX module's up_transpose_{depth}.
     self.up_transpose = nn.ModuleList(
         _UpTranspose(self.features[d + 1], self.features[d])
         for d in range(levels)
     )
     self.up = nn.ModuleList(
-        _Block(2 * self.features[d], self.features[d]) for d in range(levels)
+        _Block(2 * self.features[d], self.features[d], activation=activation)
+        for d in range(levels)
     )
     self.head = nn.Conv2d(self.features[0], num_classes, 1)
 

@@ -72,8 +72,13 @@ class MultiDopantState:
   # dwell short. Always 0 under sane rate functions.
   kmc_truncation_count: torch.Tensor
   imaging: structures.ImagingParams  # per-episode render randomization
-  # (B, 2) cumulative instrument drift, material-frame angstroms.
-  drift: torch.Tensor
+  # (B, 2) cumulative instrument drift, material-frame angstroms; None,
+  # the JAX package's default, becomes zeros.
+  drift: Optional[torch.Tensor] = None
+
+  def __post_init__(self):
+    if self.drift is None:
+      self.drift = torch.zeros_like(self.offset)
 
 
 def _initial_sites(lattice: lattice_lib.Lattice, num_dopants: int

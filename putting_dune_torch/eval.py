@@ -51,14 +51,14 @@ from typing import Optional
 class Args:
   experiment_name: str
   eval_suite: str = 'tiny_eval'
-  step_limit: int = 600
-  image_size: Optional[int] = None
-  device: Optional[str] = None
   batched: bool = True
   video_save_dir: Optional[str] = None
-  seed: int = 0
   output_json: Optional[str] = None
+  step_limit: int = 600
+  seed: int = 0
   mesh: str = ''
+  image_size: Optional[int] = None
+  device: Optional[str] = None
 
 
 def policy_for_agent(agent):

@@ -1,11 +1,17 @@
 """Batched agent evaluation (port of putting_dune_tpu/eval_lib.py).
 
 `evaluate_batched` runs a whole suite as one batch of environments on the
-env's device; each env stops contributing once its episode ends. The
-combined budget (simulated env seconds + the batch-shared wall clock,
-600 s by default) truncates live episodes, checked every step. A policy is
-a `(gen, observation) -> action` callable or a `StatefulPolicy`, whose
-state the loop carries on the device.
+env's device; each env stops contributing once its episode ends. The steps
+run in chunks of `chunk_steps` with no host sync inside a chunk: the wall
+clock is sampled at the start of each chunk, and "all done" and the step
+cap are read between chunks. Inside a chunk the loop also stops once an
+earlier step's "all done", copied to the host without a sync, reads true
+(`_DonePoll`), as JAX's device loop checks it in its condition; the steps
+run after every episode is done change no result. The combined budget
+(simulated env seconds + that batch-shared wall clock, 600 s by default)
+truncates live episodes at every step. A policy is a `(gen, observation)
+-> action` callable or a `StatefulPolicy`, whose state the loop carries on
+the device.
 
 `evaluate` is the host per-seed loop over the single-env wrapper
 (env/dm_env_wrapper.py) and a host agent's `step`: each episode's budget
@@ -97,6 +103,10 @@ class EvalResult:
   total_reward: float
   evaluator: str = ''
 
+  @property
+  def seconds_to_goal(self) -> float:
+    return self.agent_seconds_to_goal + self.environment_seconds_to_goal
+
 
 @dataclasses.dataclass(frozen=True)
 class AggregateEvalResults:
@@ -108,6 +118,11 @@ class AggregateEvalResults:
   average_environment_seconds_to_goal: float
   average_total_reward: float
   evaluator: str = ''
+
+  @property
+  def average_seconds_to_goal(self) -> float:
+    return (self.average_agent_seconds_to_goal
+            + self.average_environment_seconds_to_goal)
 
 
 def aggregate_results(results: Sequence[EvalResult]) -> AggregateEvalResults:
@@ -142,8 +157,10 @@ def evaluate_batched(
     seeds: Sequence[int],
     *,
     timeout_seconds: float = DEFAULT_TIMEOUT_SECONDS,
+    max_steps: Optional[int] = None,
     video_save_dir: Optional[str] = None,
     video_envs: int = 4,
+    chunk_steps: int = 64,
     mesh=None,
 ) -> List[EvalResult]:
   """Evaluates a batched policy over one batch of environments.
@@ -154,12 +171,18 @@ def evaluate_batched(
     policy: (gen, observation) -> action, or a StatefulPolicy.
     seeds: one seed per environment; the generator is seeded from the
       whole list (suite_seed).
-    timeout_seconds: combined per-episode budget (simulated seconds plus
-      the batch-shared wall clock since the rollout started); the step
-      cap is env.config.step_limit or env.step_limit (600 if neither).
+    timeout_seconds: combined per-episode budget: simulated seconds plus
+      the batch-shared wall clock since the rollout started, sampled at
+      the start of each chunk, so truncation is accurate to one chunk.
+    max_steps: the step cap; None reads env.config.step_limit or
+      env.step_limit (600 if neither).
     video_save_dir: if set, `{seed}.gif` for each of the first
       `video_envs` environments, min(steps + 1, step cap + 1) frames.
     video_envs: how many leading environments to record.
+    chunk_steps: steps run between two host checks of the wall clock, of
+      "all done" and of the step cap; inside a chunk "all done" is read
+      without a sync (see the module docstring). Steps after every
+      episode is done change no result.
     mesh: a parallel.mesh.Mesh with a 'data' axis: `seeds` is the whole
       suite and env.batch_size this rank's block of it. Not with videos.
 
@@ -170,6 +193,8 @@ def evaluate_batched(
     raise ValueError(
         'mesh-sharded evaluation does not support video capture; run the '
         'video pass unsharded.')
+  if chunk_steps < 1:
+    raise ValueError(f'chunk_steps={chunk_steps} must be at least 1')
   all_seeds = list(seeds)
   if mesh is not None:
     from putting_dune_torch.parallel import mesh as mesh_lib
@@ -178,10 +203,11 @@ def evaluate_batched(
   if env.batch_size != len(seeds):
     raise ValueError(
         f'env.batch_size={env.batch_size} != len(seeds)={len(seeds)}')
-  # PuttingDuneEnv keeps the limit in its config, MultiDopantEnv inline.
-  config = getattr(env, 'config', None)
-  max_steps = (getattr(config, 'step_limit', None)
-               or getattr(env, 'step_limit', None) or 600)
+  if max_steps is None:
+    # PuttingDuneEnv keeps the limit in its config, MultiDopantEnv inline.
+    config = getattr(env, 'config', None)
+    max_steps = (getattr(config, 'step_limit', None)
+                 or getattr(env, 'step_limit', None) or 600)
   device = env.device
   gen = env_lib.make_generator(suite_seed(seeds), device)
 
@@ -198,28 +224,33 @@ def evaluate_batched(
     nvid = min(video_envs, batch) if video_save_dir else 0
     recorder = _PoseRecorder(state, nvid, max_steps + 1) if nvid else None
 
+    poll = _DonePoll(device)
     t_start = time.perf_counter()
-    for t in range(max_steps):
+    t = 0
+    while t < max_steps:
       wall = time.perf_counter() - t_start
       if wall >= timeout_seconds:
         break
-      pstate, action = policy_step(pstate, gen, ts.observation, ts.first())
-      prev_trunc = state.kmc_truncation_count
-      state, ts = env.step(state, action, gen)
-      live = ~done
-      steps = steps + live.to(torch.int32)
-      env_seconds = env_seconds + torch.where(
-          live, ts.elapsed_seconds, torch.zeros_like(ts.elapsed_seconds))
-      reward = reward + torch.where(live, ts.reward,
-                                    torch.zeros_like(ts.reward))
-      terminal = live & (ts.step_type == env_lib.LAST)
-      reached = reached | (terminal & (ts.discount == 0.0))
-      done = done | terminal | (live & ts.first())
-      done = done | (env_seconds + wall > timeout_seconds)
-      kmc_truncations = kmc_truncations + torch.sum(
-          live & (state.kmc_truncation_count > prev_trunc))
-      if recorder is not None:
-        recorder.record(t + 1, state)
+      chunk_end = min(t + chunk_steps, max_steps)
+      while t < chunk_end and not poll.all_done(done):
+        pstate, action = policy_step(pstate, gen, ts.observation, ts.first())
+        prev_trunc = state.kmc_truncation_count
+        state, ts = env.step(state, action, gen)
+        live = ~done
+        steps = steps + live.to(torch.int32)
+        env_seconds = env_seconds + torch.where(
+            live, ts.elapsed_seconds, torch.zeros_like(ts.elapsed_seconds))
+        reward = reward + torch.where(live, ts.reward,
+                                      torch.zeros_like(ts.reward))
+        terminal = live & (ts.step_type == env_lib.LAST)
+        reached = reached | (terminal & (ts.discount == 0.0))
+        done = done | terminal | (live & ts.first())
+        done = done | (env_seconds + wall > timeout_seconds)
+        kmc_truncations = kmc_truncations + torch.sum(
+            live & (state.kmc_truncation_count > prev_trunc))
+        t += 1
+        if recorder is not None:
+          recorder.record(t, state)
       if bool(done.all()):
         break
 
@@ -251,6 +282,31 @@ def evaluate_batched(
   if mesh is not None:
     results = mesh_lib.gather_blocks(results, mesh)
   return results
+
+
+class _DonePoll:
+  """Whether every episode is done, read without a host sync: each call
+  reads the copy of `done.all()` that an earlier call enqueued to pinned
+  host memory, if the copy has landed, and enqueues the next one. On the
+  CPU the copy lands at once, so a call reads the previous call's flag."""
+
+  def __init__(self, device):
+    self.cuda = device.type == 'cuda'
+    self.host = torch.zeros((), dtype=torch.bool, pin_memory=self.cuda)
+    self.event = torch.cuda.Event() if self.cuda else None
+    self.pending = False
+
+  def all_done(self, done: torch.Tensor) -> bool:
+    if self.pending:
+      if self.cuda and not self.event.query():
+        return False
+      if bool(self.host):
+        return True
+    self.host.copy_(done.all(), non_blocking=self.cuda)
+    if self.cuda:
+      self.event.record()
+    self.pending = True
+    return False
 
 
 def video_pose(state, count: int):

@@ -79,10 +79,13 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 class MessagePassingLayer(nn.Module):
-  """One edge -> node message-passing round, LayerNorm and residual."""
+  """One edge -> node message-passing round, LayerNorm and residual. `k`
+  is kept as the JAX module keeps it: the edge table's shape sets the
+  neighbour count."""
 
-  def __init__(self, in_features: int, width: int = 64):
+  def __init__(self, in_features: int, width: int = 64, k: int = 8):
     super().__init__()
+    self.k = k
     self.edge_mlp = MLP(2 * in_features + 3, (width, width))
     self.node_mlp = MLP(in_features + width, (width, width))
     self.norm = nn.LayerNorm(width, eps=LAYER_NORM_EPS)
@@ -112,7 +115,7 @@ class AlignmentGraphNetwork(nn.Module):
     self.num_frames, self.width, self.k = num_frames, width, k
     self.embed = MLP(2 + num_frames + 1, (width,))
     self.layers = nn.ModuleList(
-        MessagePassingLayer(width, width) for _ in range(num_layers))
+        MessagePassingLayer(width, width, k) for _ in range(num_layers))
     self.global_head = MLP(width, (width, 2))
     self.local_head = MLP(width, (width, 2))
 

@@ -2,13 +2,14 @@
 
 Port of putting_dune_tpu/image_alignment/model.py. A UNet trunk over a
 T-frame stack (a 7x7 stem, then the atom detector's blocks: 'SAME'
-convolution + channel LayerNorm + tanh GELU, 2x2 max pooling, flax's
-'SAME' stride-2 transposed convolution on the way up) with two heads:
+convolution + channel LayerNorm + activation, the tanh GELU of flax's
+`nn.gelu` by default, 2x2 max pooling, flax's 'SAME' stride-2 transposed
+convolution on the way up) with two heads:
 
   * local: a 7x7 convolution to `local_output_size` channels per pixel (3
     classes for each of the T frames, frame-major: channel 3 t + c);
   * global, from the bottleneck: a 1x1 convolution to 256 channels,
-    LayerNorm, tanh GELU, the spatial mean and a Dense to
+    LayerNorm, the activation, the spatial mean and a Dense to
     `global_output_size` (the (T, 2) drift, frame-major).
 
 Like the JAX module it takes NHWC, (B, H, W, T), and returns (local
@@ -20,7 +21,8 @@ maps a state_dict (or the module) back onto the flax tree.
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+import functools
+from typing import Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -41,23 +43,25 @@ class GlobalLocalUNet(nn.Module):
       global_output_size: int = 2,
       features: Sequence[int] = (64, 128, 256, 512, 1024),
       in_channels: int = 1,
+      activation: Callable = unet_lib.gelu,
   ):
     super().__init__()
     self.features = tuple(features)
+    self.activation = activation
     levels = len(self.features) - 1
-    self.stem = unet_lib._Block(in_channels, self.features[0], kernel=7)
+    block = functools.partial(unet_lib._Block, activation=activation)
+    self.stem = block(in_channels, self.features[0], kernel=7)
     down, channels = [], self.features[0]
     for width in self.features[:-1]:
-      down.append(unet_lib._Block(channels, width))
+      down.append(block(channels, width))
       channels = width
     self.down = nn.ModuleList(down)
-    self.bottleneck = unet_lib._Block(channels, self.features[-1])
+    self.bottleneck = block(channels, self.features[-1])
     self.up_transpose = nn.ModuleList(
         unet_lib._UpTranspose(self.features[d + 1], self.features[d])
         for d in range(levels))
     self.up = nn.ModuleList(
-        unet_lib._Block(2 * self.features[d], self.features[d])
-        for d in range(levels))
+        block(2 * self.features[d], self.features[d]) for d in range(levels))
     self.local_head = nn.Conv2d(self.features[0], local_output_size, 7,
                                 padding=3)
     self.global_conv = nn.Conv2d(self.features[-1], GLOBAL_WIDTH, 1)
@@ -87,8 +91,7 @@ class GlobalLocalUNet(nn.Module):
       x = torch.cat([x, skips.pop()], dim=1)
       x = self.up[depth](x)
     local = self.local_head(x).permute(0, 2, 3, 1)
-    g = F.gelu(self.global_norm(self.global_conv(bottleneck)),
-               approximate='tanh')
+    g = self.activation(self.global_norm(self.global_conv(bottleneck)))
     global_out = self.global_head(g.mean(dim=(-2, -1)))
     if single:
       return local[0], global_out[0]

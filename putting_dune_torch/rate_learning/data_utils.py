@@ -114,15 +114,19 @@ def prior_rates_canonical(position: torch.Tensor) -> torch.Tensor:
 
 def generate_synthetic_data(
     num_data: int = 100,
-    generator: Optional[torch.Generator] = None,
+    data_seed: Optional[int] = None,
     num_states: int = 3,
     position_dim: int = 2,
     context_dim: int = 2,
     actual_time_range: Tuple[float, float] = (0.0, 5.0),
     mode: SyntheticDataType = SyntheticDataType.PRIOR,
+    *,
+    generator: Optional[torch.Generator] = None,
     device=None,
 ):
-  """Synthetic transition datasets, drawn on `device` from `generator`.
+  """Synthetic transition datasets, drawn on `device` from `generator`, or
+  from a generator seeded with `data_seed` (None: 0, as in the JAX
+  package) when none is given.
 
   Each record: context (noise dims), position (beam), true rates, an
   exposure window dt ~ U(time_range) and next_state in {0 = none, 1..3 =
@@ -134,7 +138,8 @@ def generate_synthetic_data(
 
   device = device_lib.resolve_device(device)
   if generator is None:
-    generator = torch.Generator(device=device).manual_seed(0)
+    generator = torch.Generator(device=device).manual_seed(
+        0 if data_seed is None else data_seed)
   net = None
   if mode == SyntheticDataType.NETWORK:
     from putting_dune_torch.rate_learning import model as model_lib

@@ -41,11 +41,11 @@ class LearnedRatePredictor:
 
   def __init__(
       self,
-      config: config_lib.RateLearningConfig = config_lib.RateLearningConfig(),
+      generator: Optional[torch.Generator] = None,
       num_states: int = 3,
       position_dim: int = 2,
+      config: config_lib.RateLearningConfig = config_lib.RateLearningConfig(),
       device=None,
-      generator: Optional[torch.Generator] = None,
       seed: int = 0,
   ):
     self.device = device_lib.resolve_device(device)
@@ -139,8 +139,8 @@ class LearnedRatePredictor:
   # -- training ---------------------------------------------------------------
 
   def train(self, train_data: Mapping[str, np.ndarray],
-            bootstrap: Optional[bool] = None,
-            epoch_chunk: Optional[int] = None, progress=None, mesh=None):
+            bootstrap: Optional[bool] = None, mesh=None,
+            epoch_chunk: Optional[int] = None, progress=None):
     """Trains the bootstrap ensemble on `train_data` (host arrays or
     tensors: next_state, dt, rates, position, context). It starts from the
     ensemble the predictor holds, freshly initialised at construction (the

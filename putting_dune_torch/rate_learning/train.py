@@ -59,8 +59,9 @@ def _take(data: Mapping[str, torch.Tensor], index: torch.Tensor):
   return out
 
 
-def train_epoch(model, optimizer, train_data: Mapping[str, torch.Tensor],
-                batch_size: int, generator: torch.Generator,
+def train_epoch(model, optimizer, batch_size: int,
+                generator: torch.Generator,
+                train_data: Mapping[str, torch.Tensor],
                 config: config_lib.RateLearningConfig,
                 models: Optional[tuple[int, int, int]] = None) -> None:
   """One epoch: each model shuffles its own rows, then floor(N / batch)
@@ -129,7 +130,7 @@ def train_model(model, optimizer, train_data, test_data,
   history = []
   for _ in range(epochs):
     model.train()
-    train_epoch(model, optimizer, train_data, config.batch_size, generator,
+    train_epoch(model, optimizer, config.batch_size, generator, train_data,
                 config, models)
     model.eval()
     with torch.no_grad():
@@ -216,11 +217,11 @@ def train_multiple_models(
     generator: torch.Generator,
     num_models: int,
     config: config_lib.RateLearningConfig,
+    mesh=None,
     epoch_chunk: Optional[int] = None,
     progress: Optional[Callable[[int, Mapping[str, float]], None]] = None,
     device=None,
     model: Optional[model_lib.RateMLP] = None,
-    mesh=None,
 ):
   """Trains the bootstrap ensemble as one batched program.
 

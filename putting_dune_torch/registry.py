@@ -123,8 +123,10 @@ def _greedy_agent(rng, adapters_and_goal, device=None, argmax=(1.42, 0.0)):
                                device=device)
 
 
-def _checkpoint_path(model_name: str) -> str:
-  path = os.path.join(eval_agent.MODEL_WEIGHTS_DIR, model_name)
+def _checkpoint_path(model_name: str, weights_dir: Optional[str] = None
+                     ) -> str:
+  path = os.path.join(weights_dir or eval_agent.MODEL_WEIGHTS_DIR,
+                      model_name)
   if not os.path.isdir(path):
     raise FileNotFoundError(f'No policy checkpoint at {path}.')
   return path
@@ -140,16 +142,18 @@ def _checkpoint_policy(model_name: str):
 
 @dataclasses.dataclass(frozen=True)
 class PolicyCheckpointAgent:
-  """get_agent of a shipped policy checkpoint: an `EvalAgent` over
-  `model_weights/<model_name>`; raises FileNotFoundError where the
-  directory is absent."""
+  """get_agent of a policy checkpoint: an `EvalAgent` over
+  `<weights_dir>/<model_name>` (the shipped `model_weights/` unless
+  weights_dir is given); raises FileNotFoundError where the directory is
+  absent."""
 
   model_name: str
+  weights_dir: Optional[str] = None
 
   def __call__(self, rng, adapters_and_goal, device=None):
     del rng, adapters_and_goal
-    return eval_agent.EvalAgent.load(_checkpoint_path(self.model_name),
-                                     device)
+    return eval_agent.EvalAgent.load(
+        _checkpoint_path(self.model_name, self.weights_dir), device)
 
 
 def _checkpoint_entry(model_name: str) -> dict:

@@ -195,10 +195,15 @@ class SimulatorState:
       the true offset between the believed FOV and where the sample sits.
       Observations are built from the drifted world; physics (KMC, goals)
       stays in the true frame. Always a tensor (zeros without drift), so
-      that `tree_map` selects and scatters it on auto-reset.
+      that `tree_map` selects and scatters it on auto-reset; None, the
+      JAX package's default, becomes zeros.
   """
 
   material: MaterialState
   fov: FieldOfView
   imaging: ImagingParams
-  drift: torch.Tensor
+  drift: Optional[torch.Tensor] = None
+
+  def __post_init__(self):
+    if self.drift is None:
+      self.drift = torch.zeros_like(self.material.offset)

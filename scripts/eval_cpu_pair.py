@@ -1,20 +1,21 @@
 """One eval through both packages on the CPU, on the same seeds.
 
   python scripts/eval_cpu_pair.py --experiment_name=multi_dopant_3_vision_planner \
-      [--seeds=0-19] [--step_limit=600] [--out_dir=runs/eval_pair]
+      [--seeds=0-19] [--step_limit=600] [--out_dir=runs/eval_pair] \
+      [--grid_columns=50] [--batch_size=20]
 
 The experiment is a multi-dopant one or a single-dopant eval experiment of
 both registries (`vision_planner_drift_corrected`, say; the single-dopant
-env renders at its default 512^2).
+env renders at its default 512^2, on a lattice of `--grid_columns`).
 
 Runs the JAX package's and the PyTorch port's `evaluate_batched` on the CPU,
 at the same time, each in a process of its own (`--worker=jax|torch`; the
 JAX one with JAX_PLATFORMS=cpu, as the JAX package's tests run it). Both see
 the same seed list (`--seeds`: `a-b`, both ends included, or a comma list;
 the suite names of eval_lib, such as `small_eval`, work too) in consecutive
-batches of `BATCH_SIZE` seeds, each an `evaluate_batched` call of its own:
+batches of `--batch_size` seeds, each an `evaluate_batched` call of its own:
 a JAX batch of 100 pixel envs at 512^2 holds ~38 GB on the CPU, one of 20
-~9 GB. The PRNG streams differ (threefry against Philox), so the two runs
+~9 GB (vector envs take batches of 1000). The PRNG streams differ (threefry against Philox), so the two runs
 draw different episodes from the same laws.
 
 The evaluators' budget is simulated seconds plus the batch's wall clock
@@ -62,7 +63,7 @@ def _stopped_clock(eval_lib) -> None:
   eval_lib.time = types.SimpleNamespace(perf_counter=lambda: 0.0)
 
 
-def _jax_results(experiment_name, seeds, step_limit):
+def _jax_results(experiment_name, seeds, step_limit, grid_columns):
   import numpy as np
 
   from putting_dune_tpu import eval as eval_cli
@@ -81,12 +82,13 @@ def _jax_results(experiment_name, seeds, step_limit):
                                  experiment.get_adapters_and_goal())
     env = run_helpers.create_batched_env(
         experiment.get_adapters_and_goal, experiment.get_simulator_config,
-        batch_size=len(seeds), step_limit=step_limit)
+        batch_size=len(seeds), step_limit=step_limit,
+        grid_columns=grid_columns)
     policy = eval_cli._policy_for_agent(agent, env)  # pylint: disable=protected-access
   return eval_lib.evaluate_batched(env, policy, seeds)
 
 
-def _torch_results(experiment_name, seeds, step_limit):
+def _torch_results(experiment_name, seeds, step_limit, grid_columns):
   from putting_dune_torch import eval as eval_cli
   from putting_dune_torch import eval_lib
   from putting_dune_torch import registry
@@ -103,18 +105,21 @@ def _torch_results(experiment_name, seeds, step_limit):
     adapters_and_goal = experiment.get_adapters_and_goal()
     env = run_helpers.create_batched_env(
         experiment.get_adapters_and_goal, experiment.get_simulator_config,
-        batch_size=len(seeds), step_limit=step_limit, device='cpu')
+        batch_size=len(seeds), step_limit=step_limit,
+        grid_columns=grid_columns, device='cpu')
     policy = eval_cli.policy_for_agent(
         experiment.get_policy(adapters_and_goal, env.device))
   return eval_lib.evaluate_batched(env, policy, seeds)
 
 
-def worker(package, experiment_name, seeds, step_limit, out_path) -> None:
+def worker(package, experiment_name, seeds, step_limit, out_path,
+           grid_columns=50, batch_size=BATCH_SIZE) -> None:
   t0 = time.perf_counter()
   run = _jax_results if package == 'jax' else _torch_results
   results, steps = [], 0
-  for i in range(0, len(seeds), BATCH_SIZE):
-    batch = run(experiment_name, seeds[i:i + BATCH_SIZE], step_limit)
+  for i in range(0, len(seeds), batch_size):
+    batch = run(experiment_name, seeds[i:i + batch_size], step_limit,
+                grid_columns)
     results += batch
     steps += max(r.num_actions_taken for r in batch)
   seconds = time.perf_counter() - t0
@@ -151,6 +156,8 @@ def main(argv=None) -> None:
                       default='multi_dopant_3_vision_planner')
   parser.add_argument('--seeds', default='0-19')
   parser.add_argument('--step_limit', type=int, default=600)
+  parser.add_argument('--grid_columns', type=int, default=50)
+  parser.add_argument('--batch_size', type=int, default=BATCH_SIZE)
   parser.add_argument('--out_dir', default=os.path.join(
       ROOT, 'runs', 'eval_pair'))
   parser.add_argument('--worker', choices=('jax', 'torch'), default=None)
@@ -165,7 +172,7 @@ def main(argv=None) -> None:
   if args.worker:
     sys.path.insert(0, ROOT)
     worker(args.worker, args.experiment_name, seeds, args.step_limit,
-           out_path(args.worker))
+           out_path(args.worker), args.grid_columns, args.batch_size)
     return
 
   workers = {}
@@ -178,12 +185,15 @@ def main(argv=None) -> None:
     workers[package] = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), f'--worker={package}',
          f'--experiment_name={args.experiment_name}', f'--seeds={args.seeds}',
-         f'--step_limit={args.step_limit}', f'--out_dir={args.out_dir}'],
+         f'--step_limit={args.step_limit}', f'--out_dir={args.out_dir}',
+         f'--grid_columns={args.grid_columns}',
+         f'--batch_size={args.batch_size}'],
         env=env)
   failed = [p for p, w in workers.items() if w.wait() != 0]
   if failed:
     sys.exit(f'worker(s) {failed} failed')
-  report = {'experiment': args.experiment_name, 'seeds': args.seeds}
+  report = {'experiment': args.experiment_name, 'seeds': args.seeds,
+            'grid_columns': args.grid_columns}
   for package in ('jax', 'torch'):
     with open(out_path(package)) as f:
       run = json.load(f)

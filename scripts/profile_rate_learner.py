@@ -109,7 +109,7 @@ def main(argv=None) -> None:
                                   config.weight_decay)
 
   def epoch():
-    train.train_epoch(model, optimizer, train_data, config.batch_size, gen,
+    train.train_epoch(model, optimizer, config.batch_size, gen, train_data,
                       config)
 
   print(f'trainer: {num_models} models, hidden {config.hidden_dimensions}, '

@@ -315,7 +315,7 @@ def test_prior_synthetic_data_matches_jax_in_law():
   n = 20_000
   j_train_set, _ = j_data.generate_synthetic_data(num_data=n, data_seed=3)
   t_train_set, t_test_set = t_data.generate_synthetic_data(
-      num_data=n, generator=torch.Generator().manual_seed(3), device='cpu')
+      num_data=n, data_seed=3, device='cpu')
   j_ns = np.asarray(j_train_set['next_state'])
   t_ns = t_train_set['next_state'].numpy()
   assert t_ns.shape == (n,) and t_test_set['dt'].shape == (n,)
@@ -339,7 +339,7 @@ def test_prior_synthetic_data_matches_jax_in_law():
 
 def test_network_synthetic_data_shapes_and_law():
   train, _ = t_data.generate_synthetic_data(
-      num_data=4000, generator=torch.Generator().manual_seed(4),
+      num_data=4000, data_seed=4,
       mode=t_data.SyntheticDataType.NETWORK, device='cpu')
   assert train['context'].shape == (4000, 2)
   assert train['position'].shape == (4000, 2)
@@ -354,7 +354,7 @@ def test_network_synthetic_data_shapes_and_law():
 
 def _small_data(seed, n):
   train, _ = t_data.generate_synthetic_data(
-      num_data=n, generator=torch.Generator().manual_seed(seed), device='cpu')
+      num_data=n, data_seed=seed, device='cpu')
   return {k: v.numpy() for k, v in train.items()}
 
 
