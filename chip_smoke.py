@@ -269,7 +269,20 @@ Phases (any failure exits non-zero before the final line):
       max|d| 0 against the shipped agent on 100 frames of the env; (e)
       `noise_chain` and the CLAHE pair held against their twins on the
       frames (a) gave them;
-  27. a `kernels` JSON line; 28. the result JSON line, last.
+  27. SavedModels of TF ops, as jax2tf's pre-native path wrote the
+      reference's 2023 policies (no kernel of their own beyond 27c's): (a)
+      every committed fixture (tests/data/torch_tf_graphs: five models in
+      the `xla` and `plain` modes) loaded on the card against TF's
+      recorded outputs (TF_GRAPH_TOLERANCES): load and first-call seconds,
+      forward ms, max|d|; (b) one episode of the host evaluator on
+      `eval_ppo_v3_2s` through `TfSavedModelAgent` on the full-width
+      `ppo_v3_2s_xla` graph, each action held to EvalAgent's on the
+      shipped checkpoint (bar 1e-5); (c) a tiny_eval host pixel eval at the
+      128^2 render through the narrow actor-critic graphs of both modes on
+      the env's dict observation (episodes cut at TF_GRAPH_PIXEL_STEPS):
+      `noise_chain` and `clahe_small` launched once a render; (d) those two
+      kernels held against their twins on the frames (c) gave them;
+  28. a `kernels` JSON line; 29. the result JSON line, last.
 
 It imports nothing of JAX or of putting_dune_tpu (the shipped weights are
 read as data).
@@ -3546,6 +3559,163 @@ def _saved_model_interop(dev, smi, path_launches, tmp) -> dict:
   return out
 
 
+# Phase 27: SavedModels of TF ops (jax2tf's pre-native graphs, the `xla`
+# and `plain` modes) and dict observations. Tolerances (rtol, atol) of the
+# committed fixtures against TF's recorded outputs: tests/test_torch_tf_
+# graphs.py's (the JAX test's for the UNets, 1e-5 for the others).
+TF_GRAPH_FIXTURES = os.path.join(ROOT, 'tests', 'data', 'torch_tf_graphs')
+TF_GRAPH_TOLERANCES = {'ppo_v3_2s': (1e-5, 1e-5),
+                       'actor_critic': (1e-5, 1e-5),
+                       'rate_predictor': (1e-5, 1e-6),
+                       'atom_detector': (1e-3, 1e-4),
+                       'image_aligner': (1e-3, 1e-4)}
+# 27c: tiny_eval's ten seeds at the 128^2 render, each episode cut at this
+# many steps (the narrow actor-critic is untrained: its episodes run to the
+# step limit).
+TF_GRAPH_PIXEL_STEPS = 40
+
+
+def tf_graphs(dev, smi, path_launches) -> dict:
+  """Phase 27 (see the module docstring); returns the numbers it read."""
+  import torch
+
+  recorded = {}
+  with _recording_inputs(recorded):
+    out = _tf_graphs(dev, smi, path_launches)
+  gen = torch.Generator(device=dev).manual_seed(27)
+  render = _recorded(recorded, 'clahe_small', (1, 128, 128), '27d')
+  kw = {k: render[k] for k in ('clip_limit', 'grid_size', 'nbins')}
+  out['twins'] = {
+      'noise_chain_128': _hold_noise_chain(
+          dev, _recorded(recorded, 'noise_chain', (1, 128, 128), '27d'),
+          "27d on the pixel host eval's clean renders:", gen),
+      'clahe_small_128': _hold_clahe_small(
+          render['image'], kw, "27d clahe_small (1, 128, 128) on the pixel "
+          "host eval's frames"),
+  }
+  return out
+
+
+def _tf_graphs(dev, smi, path_launches) -> dict:
+  import numpy as np
+  import torch
+
+  from putting_dune_torch import eval_lib
+  from putting_dune_torch import registry
+  from putting_dune_torch import run_helpers
+  from putting_dune_torch.agents import eval_agent
+  from putting_dune_torch.io import tf_export
+  from putting_dune_torch.ops import _build
+
+  out = {}
+  with open(os.path.join(TF_GRAPH_FIXTURES, 'index.json')) as f:
+    index = json.load(f)
+
+  # -- 27a. every committed fixture on the card -------------------------------
+  for name, entry in sorted(index['fixtures'].items()):
+    root = os.path.join(TF_GRAPH_FIXTURES, name)
+    if entry['inputs']:
+      x = {k: np.load(os.path.join(root, f'input_{k}.npy'))
+           for k in entry['inputs']}
+    else:
+      x = np.load(os.path.join(root, 'input.npy'))
+    t0 = time.perf_counter()
+    model = tf_export.load_tf_saved_model(os.path.join(root, 'saved_model'),
+                                          device=dev)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = model(x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    got = got if isinstance(got, tuple) else (got,)
+    rtol, atol = TF_GRAPH_TOLERANCES[name.rsplit('_', 1)[0]]
+    worst = 0.0
+    for i, g in enumerate(got):
+      check(g.device.type == dev.type, f'27a: {name} output on {g.device}')
+      want = np.load(os.path.join(root, f'output_{i}.npy'))
+      g = g.cpu().numpy()
+      check(bool(np.allclose(g, want, rtol=rtol, atol=atol)),
+            f'27a: {name} differs from TF\'s recorded output')
+      worst = max(worst, float(np.abs(g - want).max()))
+    forward_ms = time_ms(lambda: model(x), repeats=20)
+    print(f'27a {name} ({len(entry["ops"])} op types) on the card: load '
+          f'{load_s:.3f} s, first call {first_s:.3f} s, forward '
+          f'{forward_ms:.3f} ms (median of 20, host inputs), max|d| '
+          f'{worst:.3g} against TF\'s recorded output (rtol {rtol:g}, atol '
+          f'{atol:g}) on {smi}', flush=True)
+    out[name] = dict(max_abs_err=worst, load_s=load_s, first_s=first_s,
+                     forward_ms=forward_ms)
+
+  # -- 27b. the host evaluator through the full-width xla-mode MLP ------------
+  experiment = registry.create_eval_experiment('eval_ppo_v3_2s')
+  tf_agent = eval_agent.TfSavedModelAgent(
+      os.path.join(TF_GRAPH_FIXTURES, 'ppo_v3_2s_xla', 'saved_model'),
+      device=dev)
+  native_agent = eval_agent.EvalAgent.load(
+      os.path.join(eval_agent.MODEL_WEIGHTS_DIR, '230422_ppo_v3_2s'), dev)
+  diffs = []
+
+  class Paired:
+    """Acts with the SavedModel agent; holds each action to EvalAgent's."""
+
+    def step(self, time_step):
+      action = tf_agent.step(time_step)
+      diffs.append(float(np.abs(action - native_agent.step(time_step)).max()))
+      return action
+
+    def set_mode(self, mode):
+      tf_agent.set_mode(mode)
+      native_agent.set_mode(mode)
+
+  env = run_helpers.create_putting_dune_env(
+      0, experiment.get_adapters_and_goal, experiment.get_simulator_config,
+      simulator_step_limit=SAVED_MODEL_EPISODE_STEPS, device=dev)
+  t0 = time.perf_counter()
+  (result,) = eval_lib.evaluate(Paired(), env, [0])
+  episode_s = time.perf_counter() - t0
+  check(len(diffs) == result.num_actions_taken and diffs,
+        '27b: the evaluator took no action')
+  print(f'27b host evaluator, eval_ppo_v3_2s seed 0 through '
+        f'TfSavedModelAgent on the xla-mode graph (hidden (256, 256)): '
+        f'{result.num_actions_taken} actions in {episode_s:.2f} s, each '
+        f'against EvalAgent on the shipped checkpoint: max|d| '
+        f'{max(diffs):.3g} (bar 1e-5)', flush=True)
+  check(max(diffs) <= 1e-5, '27b: TfSavedModelAgent differs from EvalAgent')
+  out['episode'] = dict(actions=result.num_actions_taken,
+                        max_abs_err=max(diffs), seconds=episode_s)
+
+  # -- 27c. a host pixel eval through the narrow actor-critic (dict obs) -------
+  experiment = registry.create_eval_experiment('ppo_simple_images_tf')
+  seeds = eval_lib.EVAL_SUITES['tiny_eval']
+  for mode in ('xla', 'plain'):
+    agent = eval_agent.TfSavedModelAgent(
+        os.path.join(TF_GRAPH_FIXTURES, f'actor_critic_{mode}',
+                     'saved_model'), device=dev)
+    env = run_helpers.create_putting_dune_env(
+        0, experiment.get_adapters_and_goal, experiment.get_simulator_config,
+        simulator_step_limit=TF_GRAPH_PIXEL_STEPS, image_size=128,
+        device=dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    results = eval_lib.evaluate(agent, env, seeds)
+    seconds = time.perf_counter() - t0
+    counted = dict(_build.LAUNCHES)
+    steps = sum(r.num_actions_taken for r in results)
+    print(f'27c host pixel eval, tiny_eval at the 128^2 render, the '
+          f'{mode}-mode actor-critic on the dict observation: {steps} env '
+          f'steps in {seconds:.2f} s = {steps / seconds:.1f} env steps/s at '
+          f'batch 1 on {smi}; launches {counted}', flush=True)
+    check(steps > 0, '27c: the evaluator took no action')
+    # One render a step plus one a reset: noise_chain and clahe_small.
+    for kernel in ('noise_chain', 'clahe_small'):
+      check(counted[kernel] == steps + len(seeds),
+            f'27c: {kernel} not launched once a render')
+    path_launches[f'tf_graph_pixel_128_{mode}'] = counted
+    out[f'pixel_eval_{mode}'] = dict(steps=steps, seconds=seconds,
+                                     launches=counted)
+  return out
+
+
 def main() -> None:
   import torch
 
@@ -4376,10 +4546,16 @@ def main() -> None:
   print(f'API parity summary ({time.perf_counter() - t0:.1f} s): '
         f'{json.dumps(summary)}', flush=True)
 
-  print(f'phases 1-26 in {time.perf_counter() - t_smoke:.1f} s on {smi}',
+  # -- 27. SavedModels of TF ops and dict observations ------------------------
+  t0 = time.perf_counter()
+  summary = tf_graphs(dev, smi, path_launches)
+  print(f'TF-op graphs summary ({time.perf_counter() - t0:.1f} s): '
+        f'{json.dumps(summary)}', flush=True)
+
+  print(f'phases 1-27 in {time.perf_counter() - t_smoke:.1f} s on {smi}',
         flush=True)
 
-  # -- 27. kernels line --------------------------------------------------------
+  # -- 28. kernels line --------------------------------------------------------
   kernels = []
   for name, (ms, plain_ms, err, bound_ms, bound_by, source) in rows.items():
     by_path = {path: counts[name] for path, counts in path_launches.items()}

@@ -257,9 +257,12 @@ def mean_policy(model: nn.Module):
 
 class TfSavedModelAgent(agent_lib.Agent):
   """A frozen policy exported as a TF SavedModel: `step` feeds the raw
-  observation to the SavedModel's `__call__` and returns the action as a
-  numpy array, as the JAX package's TfSavedModelAgent does. The file is
-  read and run without TensorFlow (`io/tf_export.py`) on `device`."""
+  observation (an array, or a pixel policy's {image, goal_delta_angstroms}
+  dict) to the SavedModel's `__call__` and returns the action as a numpy
+  array, as the JAX package's TfSavedModelAgent does. The file (an
+  `XlaCallModule` export, or a graph of TF ops such as the reference's
+  2023 jax2tf policies) is read and run without TensorFlow
+  (`io/tf_export.py`) on `device`."""
 
   def __init__(self, path: str, device=None):
     from putting_dune_torch.io import tf_export
@@ -267,7 +270,8 @@ class TfSavedModelAgent(agent_lib.Agent):
     self._model = tf_export.load_tf_saved_model(path, device)
 
   def step(self, time_step) -> np.ndarray:
-    return self._model(time_step.observation).cpu().numpy()
+    with torch.no_grad():
+      return self._model(time_step.observation).cpu().numpy()
 
   def set_mode(self, mode: agent_lib.AgentMode) -> None:
     pass

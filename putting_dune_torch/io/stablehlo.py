@@ -213,7 +213,12 @@ def _divide(a, b):
   return torch.div(a, b, rounding_mode='trunc')
 
 
-def _broadcast_in_dim(shape, dims):
+# The shape ops, products, convolutions and windows below take plain ints,
+# so that the TF op table (`io/tf_ops.py`) runs the `Xla*` ops through the
+# same code as this interpreter.
+
+
+def broadcast_in_dim(shape, dims):
   rank = len(shape)
   order = sorted(range(len(dims)), key=lambda i: dims[i])
   view = [1] * rank
@@ -228,7 +233,12 @@ def _broadcast_in_dim(shape, dims):
   return run
 
 
-def _dot_general(lhs_batch, rhs_batch, lhs_contract, rhs_contract, out_shape):
+def dot_general(lhs_batch, rhs_batch, lhs_contract, rhs_contract,
+                out_shape=None):
+  """Result dims: the batch dims, then the lhs's free dims, then the
+  rhs's (`out_shape` None: as they come)."""
+  lhs_batch, rhs_batch = list(lhs_batch), list(rhs_batch)
+  lhs_contract, rhs_contract = list(lhs_contract), list(rhs_contract)
 
   def run(a, b):
     lf = [d for d in range(a.dim()) if d not in lhs_batch + lhs_contract]
@@ -238,9 +248,12 @@ def _dot_general(lhs_batch, rhs_batch, lhs_contract, rhs_contract, out_shape):
     n = math.prod(b.shape[d] for d in rf)
     k = math.prod(a.shape[d] for d in lhs_contract)
     nb = math.prod(batch)
-    a2 = a.permute(list(lhs_batch) + lf + list(lhs_contract)).reshape(nb, m, k)
-    b2 = b.permute(list(rhs_batch) + list(rhs_contract) + rf).reshape(nb, k, n)
-    return torch.bmm(a2, b2).reshape(out_shape)
+    a2 = a.permute(lhs_batch + lf + lhs_contract).reshape(nb, m, k)
+    b2 = b.permute(rhs_batch + rhs_contract + rf).reshape(nb, k, n)
+    shape = out_shape
+    if shape is None:
+      shape = batch + [a.shape[d] for d in lf] + [b.shape[d] for d in rf]
+    return torch.bmm(a2, b2).reshape(shape)
 
   return run
 
@@ -248,24 +261,47 @@ def _dot_general(lhs_batch, rhs_batch, lhs_contract, rhs_contract, out_shape):
 def _convolution(props: Dict[str, mb.Attr], kernel_shape,
                  out_shape) -> Callable:
   get = lambda k: int_attr(props[k])
-  if get('batch_group_count') != 1:
+  n = len(ints(props['input_spatial_dimensions']))
+  return convolution(
+      input_batch=get('input_batch_dimension'),
+      input_feature=get('input_feature_dimension'),
+      input_spatial=ints(props['input_spatial_dimensions']),
+      kernel_input=get('kernel_input_feature_dimension'),
+      kernel_output=get('kernel_output_feature_dimension'),
+      kernel_spatial=ints(props['kernel_spatial_dimensions']),
+      output_batch=get('output_batch_dimension'),
+      output_feature=get('output_feature_dimension'),
+      output_spatial=ints(props['output_spatial_dimensions']),
+      strides=ints(props['window_strides']) or (1,) * n,
+      padding=ints(props['padding']) or (0,) * (2 * n),
+      lhs_dilation=ints(props['lhs_dilation']) or (1,) * n,
+      rhs_dilation=ints(props['rhs_dilation']) or (1,) * n,
+      feature_group_count=get('feature_group_count'),
+      batch_group_count=get('batch_group_count'),
+      window_reversal=any(bools(props['window_reversal'])),
+      kernel_shape=kernel_shape, out_shape=out_shape)
+
+
+def convolution(*, input_batch, input_feature, input_spatial, kernel_input,
+                kernel_output, kernel_spatial, output_batch, output_feature,
+                output_spatial, strides, padding, lhs_dilation, rhs_dilation,
+                feature_group_count=1, batch_group_count=1,
+                window_reversal=False, kernel_shape,
+                out_shape=None) -> Callable:
+  """XLA's convolution of (input, kernel): the dimension numbers, the
+  padding as (lo, hi) a spatial dim, flat."""
+  if batch_group_count != 1:
     raise _refuse('convolution with batch_group_count != 1')
-  in_b, in_f = get('input_batch_dimension'), get('input_feature_dimension')
-  in_s = ints(props['input_spatial_dimensions'])
-  k_i = get('kernel_input_feature_dimension')
-  k_o = get('kernel_output_feature_dimension')
-  k_s = ints(props['kernel_spatial_dimensions'])
-  o_b, o_f = get('output_batch_dimension'), get('output_feature_dimension')
-  o_s = ints(props['output_spatial_dimensions'])
+  in_b, in_f, in_s = input_batch, input_feature, tuple(input_spatial)
+  k_i, k_o, k_s = kernel_input, kernel_output, tuple(kernel_spatial)
+  o_b, o_f, o_s = output_batch, output_feature, tuple(output_spatial)
   n = len(in_s)
   if n not in (1, 2, 3):
     raise _refuse(f'convolution over {n} spatial dimensions')
-  groups = get('feature_group_count')
-  strides = ints(props['window_strides']) or (1,) * n
-  lhs_dil = ints(props['lhs_dilation']) or (1,) * n
-  rhs_dil = ints(props['rhs_dilation']) or (1,) * n
-  pad = ints(props['padding']) or (0,) * (2 * n)
-  if any(bools(props['window_reversal'])):
+  groups = feature_group_count
+  strides, lhs_dil = tuple(strides), tuple(lhs_dilation)
+  rhs_dil, pad = tuple(rhs_dilation), tuple(padding)
+  if window_reversal:
     raise _refuse('convolution with window reversal')
   conv = (F.conv1d, F.conv2d, F.conv3d)[n - 1]
   conv_t = (F.conv_transpose1d, F.conv_transpose2d, F.conv_transpose3d)[n - 1]
@@ -274,6 +310,8 @@ def _convolution(props: Dict[str, mb.Attr], kernel_shape,
   for j, d in enumerate(o_s):
     out_perm[d] = 2 + j
   layout = torch.channels_last if n == 2 else torch.contiguous_format
+  finish = ((lambda y: y.permute(out_perm)) if out_shape is None
+            else (lambda y: y.permute(out_perm).reshape(out_shape)))
 
   # An lhs-dilated convolution (flax's and torch's transposed convolutions)
   # runs as `conv_transpose` over the input: the flipped, transposed
@@ -307,7 +345,7 @@ def _convolution(props: Dict[str, mb.Attr], kernel_shape,
                  padding=tpad, output_padding=extra)
       if any(cut):
         y = y[crop_t]
-      return y.permute(out_perm).reshape(out_shape)
+      return finish(y)
     torch_pad = []
     crop = []
     for j in reversed(range(n)):
@@ -324,7 +362,7 @@ def _convolution(props: Dict[str, mb.Attr], kernel_shape,
     y = conv(x.contiguous(memory_format=layout),
              w.contiguous(memory_format=layout), stride=strides,
              dilation=rhs_dil, groups=groups)
-    return y.permute(out_perm).reshape(out_shape)
+    return finish(y)
 
   return run
 
@@ -351,12 +389,11 @@ def _reduction_body(op: mb.Op) -> str:
   return kind
 
 
-def _combine(kind: str):
-  return {'add': torch.add, 'max': torch.maximum}[kind]
+COMBINE = {'add': torch.add, 'max': torch.maximum, 'min': torch.minimum}
 
 
 def _reduce(kind: str, dims: Tuple[int, ...]):
-  combine = _combine(kind)
+  combine = COMBINE[kind]
 
   def run(x, init):
     if dims:
@@ -366,39 +403,63 @@ def _reduce(kind: str, dims: Tuple[int, ...]):
   return run
 
 
+def unfold_windows(x, window, strides, dilations, padding, fill):
+  """x's windows, unfolded: x's dims (each the count of windows along it),
+  then the window's dims. `padding` is (lo, hi) a dim, flat, filled with
+  `fill` (a 0-d tensor)."""
+  rank = len(window)
+  torch_pad = []
+  for j in reversed(range(rank)):
+    torch_pad += [padding[2 * j], padding[2 * j + 1]]
+  if any(torch_pad):
+    x = F.pad(x, torch_pad, value=float(fill))
+  for d in range(rank):
+    span = (window[d] - 1) * dilations[d] + 1
+    x = x.unfold(d, span, strides[d])
+    if dilations[d] != 1:
+      x = x[..., ::dilations[d]]
+  return x
+
+
 def _reduce_window(kind: str, props: Dict[str, mb.Attr], out_shape):
   window = ints(props['window_dimensions'])
   rank = len(window)
-  strides = ints(props['window_strides']) or (1,) * rank
-  base = ints(props['base_dilations']) or (1,) * rank
-  dil = ints(props['window_dilations']) or (1,) * rank
-  pad = ints(props['padding']) or (0,) * (2 * rank)
-  if any(b != 1 for b in base):
+  return reduce_window(
+      kind, window, ints(props['window_strides']) or (1,) * rank,
+      ints(props['base_dilations']) or (1,) * rank,
+      ints(props['window_dilations']) or (1,) * rank,
+      ints(props['padding']) or (0,) * (2 * rank), out_shape)
+
+
+IDENTITIES = {'add': 0.0, 'max': -math.inf, 'min': math.inf}
+
+
+def reduce_window(kind: str, window, strides, base_dilations,
+                  window_dilations, padding, out_shape=None,
+                  pad_with_init=True):
+  """`reduce_window` whose body is `kind` ('add', 'max' or 'min'), folded
+  with the init value. Windows pad with the init value, as StableHLO
+  specifies; `pad_with_init=False` pads with the monoid's identity, so
+  that padding takes no part, as XLA's `ReduceWindow` skips it."""
+  rank = len(window)
+  if any(b != 1 for b in base_dilations):
     raise _refuse('reduce_window with base dilations')
-  if any(p < 0 for p in pad):
+  if any(p < 0 for p in padding):
     raise _refuse('reduce_window with negative padding')
-  combine = _combine(kind)
+  combine = COMBINE[kind]
+  reducer = {'add': torch.sum, 'max': torch.amax, 'min': torch.amin}[kind]
 
   def run(x, init):
     init_value = init.reshape(()).to(x.dtype)
-    torch_pad = []
-    for j in reversed(range(rank)):
-      torch_pad += [pad[2 * j], pad[2 * j + 1]]
-    if any(torch_pad):
-      x = F.pad(x, torch_pad, value=float(init_value))
-    for d in range(rank):
-      span = (window[d] - 1) * dil[d] + 1
-      x = x.unfold(d, span, strides[d])
-      if dil[d] != 1:
-        x = x[..., ::dil[d]]
-    axes = tuple(range(rank, 2 * rank))
-    y = x.sum(dim=axes) if kind == 'add' else x.amax(dim=axes)
-    return combine(y, init_value).reshape(out_shape)
+    fill = init_value if pad_with_init else torch.tensor(IDENTITIES[kind])
+    x = unfold_windows(x, window, strides, window_dilations, padding, fill)
+    y = combine(reducer(x, dim=tuple(range(rank, 2 * rank))), init_value)
+    return y if out_shape is None else y.reshape(out_shape)
 
   return run
 
 
-def _pad(low, high, interior):
+def pad(low, high, interior):
   """`pad`: interior padding between elements, then edge padding (a
   negative edge crops)."""
 
@@ -459,7 +520,7 @@ def _select_and_scatter(op: mb.Op) -> Callable:
   return run
 
 
-def _slice(starts, limits, strides):
+def slice_op(starts, limits, strides):
   index = tuple(slice(s, l, st) for s, l, st in zip(starts, limits, strides))
   return lambda x: x[index]
 
@@ -556,7 +617,7 @@ class Program:
     if short == 'select_v1':
       return one(torch.where)
     if short == 'broadcast_in_dim_v1':
-      return one(_broadcast_in_dim(out_types[0][0],
+      return one(broadcast_in_dim(out_types[0][0],
                                    ints(attrs['broadcast_dimensions'])))
     if short == 'reshape_v1':
       shape = out_types[0][0]
@@ -565,13 +626,13 @@ class Program:
       perm = ints(attrs['permutation'])
       return one(lambda x: x.permute(perm))
     if short == 'slice_v1':
-      return one(_slice(ints(attrs['start_indices']),
+      return one(slice_op(ints(attrs['start_indices']),
                         ints(attrs['limit_indices']), ints(attrs['strides'])))
     if short == 'convert_v1':
       dtype = out_types[0][1]
       return one(lambda x: x.to(dtype))
     if short == 'pad_v1':
-      return one(_pad(ints(attrs['edge_padding_low']),
+      return one(pad(ints(attrs['edge_padding_low']),
                       ints(attrs['edge_padding_high']),
                       ints(attrs['interior_padding'])))
     if short == 'reverse_v1':
@@ -583,7 +644,7 @@ class Program:
       dim = int_attr(attrs['dimension'])
       return lambda *xs: (torch.cat(xs, dim=dim),)
     if short == 'dot_general_v2':
-      return one(_dot_general(
+      return one(dot_general(
           ints(attrs['lhs_batching_dimensions']),
           ints(attrs['rhs_batching_dimensions']),
           ints(attrs['lhs_contracting_dimensions']),

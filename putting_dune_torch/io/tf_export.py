@@ -17,23 +17,30 @@ functions with their `saver_def`, `fingerprint.pb` and the
 2.21 loads the file without them (`tf.saved_model.load`, and the C++
 loader that serving uses).
 
-`load_tf_saved_model(save_dir, device=)` reads such a file, or one the JAX
-package wrote, without TF: it walks the object graph to `__call__` and the
-signatures, follows `StatefulPartitionedCall` / `PartitionedCall` through
-the function library from the functions' arguments, and interprets
-`Identity`, `IdentityN`, `PreventGradient`, `StopGradient`, `NoOp`,
-`Const`, variable reads (values from `variables/`) and `XlaCallModule` (run by
-`io/stablehlo.py` on `device`). Any other TF op raises naming it: graphs
-of plain TF ops wait (ROADMAP queue 1). Unlike TF it applies no platform
-check: the port is no XLA backend, so it runs a module lowered for any
-platform, passing the index of the one that matches `device` (CUDA or
-CPU) where the module takes one.
+`load_tf_saved_model(save_dir, device=)` reads such a file, one the JAX
+package wrote, or a graph of TF ops such as jax2tf's pre-native path
+wrote (the reference's 2023 policies) in either of its modes, without TF:
+it walks the object graph to `__call__` and the signatures, binds nested
+inputs (dicts, tuples, lists, flattened as `tf.nest` flattens them: dict
+keys sorted) to the concrete function's input signature, follows
+`StatefulPartitionedCall` / `PartitionedCall` through the function library
+from the functions' arguments, and interprets `Const`, variable reads
+(values from `variables/`), `XlaCallModule` (run by `io/stablehlo.py` on
+`device`) and the TF ops of `io/tf_ops.py`'s table: the `Xla*` ops of
+jax2tf's `enable_xla=True` graphs and the plain ops (`Conv2D`, `MatMul`,
+`MaxPool`, ...) of its `enable_xla=False` ones. Any other op raises
+`UnsupportedGraphError` naming it, its node and the file (ROADMAP queue 1
+lists what is refused: control flow, string ops, `XlaCallModule` versions
+other than 10). Unlike TF it applies no platform check: the port is no
+XLA backend, so it runs a module lowered for any platform, passing the
+index of the one that matches `device` (CUDA or CPU) where the module
+takes one. Products and convolutions run in full float32.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -43,6 +50,7 @@ from putting_dune_torch.io import mlir_bytecode as mb
 from putting_dune_torch.io import stablehlo
 from putting_dune_torch.io import tensor_bundle
 from putting_dune_torch.io import tensorproto
+from putting_dune_torch.io import tf_ops
 from putting_dune_torch.io import torch_to_stablehlo
 from putting_dune_torch.proto import tf_wire as tw
 
@@ -59,8 +67,7 @@ _PREVENT_GRADIENT = (b'The jax2tf-converted function does not support '
                      b'gradients')
 
 
-class UnsupportedGraphError(NotImplementedError):
-  """A SavedModel graph the loader does not interpret."""
+UnsupportedGraphError = tf_ops.UnsupportedGraphError
 
 
 # --- writing -----------------------------------------------------------------
@@ -458,7 +465,9 @@ def _tensor_value(proto: tw.TensorProto):
 
 
 class _GraphFunction:
-  """A FunctionDef of the library, interpreted on demand."""
+  """A FunctionDef of the library, interpreted on demand: the nodes its
+  outputs need, run in an order each node's inputs precede (found once,
+  without recursion, so that a deep graph runs as a shallow one)."""
 
   def __init__(self, loader: 'LoadedSavedModel', fdef: tw.FunctionDef):
     self.loader = loader
@@ -468,27 +477,70 @@ class _GraphFunction:
     self.nodes = {n.name: n for n in fdef.node_def}
     # Each XlaCallModule node's program, built at its first call.
     self.programs: Dict[str, stablehlo.Program] = {}
+    # Each Const node's tensors, made at its first run.
+    self.constants: Dict[str, list] = {}
+    self._order = None
 
   def __call__(self, args: Sequence) -> List:
     values: Dict[str, list] = {name: [a] for name, a in zip(self.inputs,
                                                               args)}
-    return [self._resolve(self.fdef.ret[name], values)
+    if self._order is None:
+      self._order = self._schedule()
+    for node in self._order:
+      values[node.name] = self._run(node, values)
+    return [self._lookup(self.fdef.ret[name], values)
             for name in self.outputs]
 
-  def _resolve(self, ref: str, values: Dict[str, list]):
+  def _captures(self, node: tw.NodeDef) -> List[str]:
+    """What a custom gradient's function captures (none for other nodes,
+    and for a gradient the file does not register: that raises when the
+    gradient is taken)."""
+    op_type = node.attr.get('_gradient_op_type')
+    if node.op != 'IdentityN' or op_type is None:
+      return []
+    try:
+      return self.loader.registered_gradient(op_type.s.decode(),
+                                             self.fdef)[1]
+    except UnsupportedGraphError:
+      return []
+
+  def _schedule(self) -> List[tw.NodeDef]:
+    args = set(self.inputs)
+    order, done = [], set()
+    stack = [(self.fdef.ret[name].split(':')[0], False)
+             for name in reversed(self.outputs)]
+    while stack:
+      name, expanded = stack.pop()
+      if name in done or name in args:
+        continue
+      if expanded:
+        done.add(name)
+        order.append(self.nodes[name])
+        continue
+      node = self.nodes.get(name)
+      if node is None:
+        raise self.loader.error(f'{self.fdef.signature.name} refers to no '
+                                f'node {name!r}')
+      stack.append((name, True))
+      deps = [i for i in node.input if not i.startswith('^')]
+      for ref in reversed(deps + self._captures(node)):
+        stack.append((ref.split(':')[0], False))
+    return order
+
+  @staticmethod
+  def _lookup(ref: str, values: Dict[str, list]):
     if ref in values:
       return values[ref][0]
     parts = ref.split(':')
-    name = parts[0]
-    if name not in values:
-      values[name] = self._run(self.nodes[name], values)
-    outs = values[name]
-    if len(parts) == 1:
-      return outs[0]
-    return outs[int(parts[-1])]
+    outs = values[parts[0]]
+    return outs[0] if len(parts) == 1 else outs[int(parts[-1])]
 
   def _run(self, node: tw.NodeDef, values) -> list:
-    inputs = [self._resolve(i, values) for i in node.input
+    if node.op == 'Const':
+      if node.name not in self.constants:
+        self.constants[node.name] = self.loader.run_op(node, [], self)
+      return self.constants[node.name]
+    inputs = [self._lookup(i, values) for i in node.input
               if not i.startswith('^')]
     op_type = node.attr.get('_gradient_op_type')
     if (node.op == 'IdentityN' and op_type is not None
@@ -497,7 +549,7 @@ class _GraphFunction:
       # cotangents and what it captured from this function.
       name, captures = self.loader.registered_gradient(op_type.s.decode(),
                                                        self.fdef)
-      captured = [self._resolve(c, values) for c in captures]
+      captured = [self._lookup(c, values) for c in captures]
       return list(_CustomGradient.apply(self.loader, name, len(inputs),
                                         *inputs, *captured))
     return self.loader.run_op(node, inputs, self)
@@ -527,60 +579,149 @@ class _CustomGradient(torch.autograd.Function):
     return (None, None, None, *out, *[None] * len(ctx.saved_tensors))
 
 
+def _kind(structure: tw.StructuredValue):
+  fields = structure.ListFields()
+  return fields[0][0] if fields else None
+
+
 class _Function:
-  """A callable concrete function: positional and keyword inputs, the
-  captured variables appended, the outputs in its output structure."""
+  """A callable concrete function: positional and keyword inputs bound to
+  its input signature (nested ones flattened as `tf.nest` flattens them),
+  the captured variables appended, the outputs in its output structure."""
 
   def __init__(self, loader, name: str, captured: Sequence[torch.Tensor],
-               structure: tw.StructuredValue, input_names: Sequence[str]):
+               inputs: tw.StructuredValue, outputs: tw.StructuredValue,
+               arg_names: Sequence[str], keywords: Sequence[str] = (),
+               positional_keywords: int = 0):
     self._loader = loader
     self._name = name
     self._captured = list(captured)
-    self._structure = structure
-    self._input_names = list(input_names)
+    self._structure = outputs
+    # (args, kwargs) of the canonicalized input signature.
+    if _kind(inputs) != 'tuple_value' or len(inputs.tuple_value.values) != 2:
+      raise loader.error(f'{name}: no input signature (args, kwargs)')
+    args, kwargs = inputs.tuple_value.values
+    self._args = list(args.tuple_value.values)
+    self._kwargs = dict(kwargs.dict_value.fields)
+    self._arg_names = list(arg_names)
+    # Keyword inputs that may also come positionally, in this order.
+    self._keywords = list(keywords)
+    self._positional_keywords = positional_keywords
+
+  def _bind(self, args, kwargs) -> list:
+    args, kwargs = list(args), dict(kwargs)
+    n = len(self._args)
+    extra = args[n:]
+    if len(extra) > self._positional_keywords:
+      raise TypeError(f'{self._name} takes {n + self._positional_keywords} '
+                      f'positional inputs, got {len(args)}')
+    for key, value in zip(self._keywords, extra):
+      if key in kwargs:
+        raise TypeError(f'input {key!r} given twice')
+      kwargs[key] = value
+    args = args[:n]
+    for i in range(len(args), n):
+      names = [self._arg_names[i]] if i < len(self._arg_names) else []
+      spec = self._args[i]
+      if _kind(spec) == 'tensor_spec_value':
+        names.append(spec.tensor_spec_value.name)
+      name = next((k for k in names if k in kwargs), None)
+      if name is None:
+        raise TypeError(f'missing input {names[0] if names else i!r}')
+      args.append(kwargs.pop(name))
+    missing = [k for k in self._kwargs if k not in kwargs]
+    if missing:
+      raise TypeError(f'missing input {missing[0]!r}')
+    unexpected = [k for k in kwargs if k not in self._kwargs]
+    if unexpected:
+      raise TypeError(f'unexpected inputs {sorted(unexpected)}')
+    flat = []
+    for i, (value, spec) in enumerate(zip(args, self._args)):
+      self._flatten(value, spec, flat, f'argument {i}')
+    for key in sorted(self._kwargs):
+      self._flatten(kwargs[key], self._kwargs[key], flat, repr(key))
+    return flat
+
+  def _flatten(self, value, spec: tw.StructuredValue, flat: list, path: str):
+    kind = _kind(spec)
+    if kind == 'tensor_spec_value':
+      flat.append(self._loader.to_device(value, spec.tensor_spec_value))
+    elif kind == 'dict_value':
+      fields = spec.dict_value.fields
+      if not isinstance(value, Mapping) or sorted(value) != sorted(fields):
+        keys = sorted(value) if isinstance(value, Mapping) else type(value)
+        raise TypeError(f'{path}: a dict of keys {sorted(fields)} is '
+                        f'expected, got {keys}')
+      for key in sorted(fields):
+        self._flatten(value[key], fields[key], flat, f'{path}[{key!r}]')
+    elif kind in ('tuple_value', 'list_value'):
+      specs = getattr(spec, kind).values
+      if (not isinstance(value, (tuple, list))
+          or len(value) != len(specs)):
+        raise TypeError(f'{path}: a sequence of {len(specs)} is expected')
+      for i, (v, s) in enumerate(zip(value, specs)):
+        self._flatten(v, s, flat, f'{path}[{i}]')
+    elif kind in ('none_value', None):
+      if value is not None:
+        raise TypeError(f'{path}: None is expected')
+    else:
+      raise self._loader.error(f'{self._name}: an input structure of kind '
+                               f'{kind}')
 
   def __call__(self, *args, **kwargs):
-    args = list(args)
-    for name in self._input_names[len(args):]:
-      if name not in kwargs:
-        raise TypeError(f'missing input {name!r}')
-      args.append(kwargs.pop(name))
-    if kwargs:
-      raise TypeError(f'unexpected inputs {sorted(kwargs)}')
-    tensors = [self._loader.to_device(a) for a in args]
-    # Under autograd, gradients flow only through registered gradients
-    # (the modules run without autograd, as PreventGradient would have it).
-    flat = self._loader.call_function(self._name, tensors + self._captured)
-    return _pack(self._structure, list(flat))
+    tensors = self._bind(args, kwargs)
+    # Under autograd, gradients flow through the TF ops and through
+    # registered gradients (the modules run without autograd, as
+    # PreventGradient would have it).
+    with stablehlo.full_float32():
+      flat = self._loader.call_function(self._name,
+                                        tensors + self._captured)
+    flat = [self._loader.to_output(t) for t in flat]
+    return _pack(self._structure, flat, self._loader)
 
 
-def _pack(structure: tw.StructuredValue, flat: list):
-  kind = structure.ListFields()[0][0] if structure.ListFields() else None
+def _pack(structure: tw.StructuredValue, flat: list, loader):
+  kind = _kind(structure)
   if kind == 'tensor_spec_value':
     return flat.pop(0)
   if kind in ('tuple_value', 'list_value'):
     values = getattr(structure, kind).values
-    out = [_pack(v, flat) for v in values]
+    out = [_pack(v, flat, loader) for v in values]
     return tuple(out) if kind == 'tuple_value' else out
   if kind == 'dict_value':
     fields = structure.dict_value.fields
-    return {k: _pack(fields[k], flat) for k in sorted(fields)}
+    return {k: _pack(fields[k], flat, loader) for k in sorted(fields)}
   if kind == 'none_value' or kind is None:
     return None
-  raise UnsupportedGraphError(f'an output structure of kind {kind}')
+  raise loader.error(f'an output structure of kind {kind}')
+
+
+def _fullargspec_args(spec: tw.FunctionSpec) -> List[str]:
+  """The `args` of a FunctionSpec's FullArgSpec (`self` dropped for a
+  method)."""
+  if _kind(spec.fullargspec) != 'named_tuple_value':
+    return []
+  for pair in spec.fullargspec.named_tuple_value.values:
+    if pair.key == 'args' and _kind(pair.value) == 'list_value':
+      names = [v.string_value for v in pair.value.list_value.values]
+      return names[1:] if spec.is_method else names
+  return []
 
 
 class LoadedSavedModel:
   """A SavedModel loaded without TF: call it as its `__call__`; its
-  `signatures` map names to functions returning {output key: tensor}."""
+  `signatures` map names to functions returning {output key: tensor}.
+  Every UnsupportedGraphError it raises names the file, and the node or
+  object at fault."""
 
   def __init__(self, save_dir: str, device):
     self.device = device_lib.resolve_device(device)
+    self.path = save_dir
     with open(os.path.join(save_dir, 'saved_model.pb'), 'rb') as f:
       saved = tw.SavedModel.FromString(f.read())
     metas = [m for m in saved.meta_graphs if 'serve' in m.meta_info_def.tags]
     if not metas:
-      raise UnsupportedGraphError(f'{save_dir}: no meta graph tagged serve')
+      raise self.error('no meta graph tagged serve')
     meta = metas[0]
     self._library = {f.signature.name: f
                      for f in meta.graph_def.library.function}
@@ -601,6 +742,13 @@ class LoadedSavedModel:
       for c in self._nodes[children['signatures']].children:
         self.signatures[c.local_name] = self._callable(c.node_id)
 
+  def error(self, what: str, node: tw.NodeDef = None) -> UnsupportedGraphError:
+    """An UnsupportedGraphError naming this file (and `node`)."""
+    where = '' if node is None else f'node {node.name!r} ({node.op}): '
+    err = UnsupportedGraphError(f'{self.path}: {where}{what}')
+    err.located = True
+    return err
+
   def _read_variables(self, save_dir: str) -> Dict[int, torch.Tensor]:
     prefix = os.path.join(save_dir, 'variables', 'variables')
     if not os.path.exists(f'{prefix}.index'):
@@ -616,47 +764,55 @@ class LoadedSavedModel:
         if attr.name == 'VARIABLE_VALUE':
           value = tensors[attr.checkpoint_key]
           if not isinstance(value, np.ndarray):
-            raise UnsupportedGraphError('a string variable')
+            raise self.error(f'object {node_id}: a string variable '
+                             f'({attr.checkpoint_key})')
           out[node_id] = torch.as_tensor(value).to(self.device)
     return out
 
   def _callable(self, node_id: int) -> _Function:
     node = self._nodes[node_id]
+    keywords, positional_keywords = [], 0
     if node.HasField('function'):
       names = list(node.function.concrete_functions)
       if len(names) != 1:
-        raise UnsupportedGraphError(
-            f'a function with {len(names)} concrete functions')
+        raise self.error(f'object {node_id}: a function with {len(names)} '
+                         'concrete functions')
       name = names[0]
+      arg_names = _fullargspec_args(node.function.function_spec)
     elif node.HasField('bare_concrete_function'):
-      name = node.bare_concrete_function.concrete_function_name
+      bare = node.bare_concrete_function
+      name = bare.concrete_function_name
+      arg_names = _fullargspec_args(bare.function_spec)
+      keywords = list(bare.argument_keywords)
+      positional_keywords = int(bare.allowed_positional_arguments)
     else:
-      raise UnsupportedGraphError(f'object {node_id} is not a function')
+      raise self.error(f'object {node_id} is not a function')
     concrete = self._concrete[name]
     captured = []
     for bound in concrete.bound_inputs:
       if bound not in self._variables:
-        raise UnsupportedGraphError(
-            f'{name} captures object {bound}, which is no variable with a '
-            'value in variables/')
+        raise self.error(
+            f'object {node_id}: {name} captures object {bound}, which is no '
+            'variable with a value in variables/')
       captured.append(self._variables[bound])
-    signature = self._library[name].signature
-    n_user = len(signature.input_arg) - len(captured)
-    names = [a.name for a in signature.input_arg[:n_user]]
-    return _Function(self, name, captured, concrete.output_signature, names)
+    return _Function(self, name, captured,
+                     concrete.canonicalized_input_signature,
+                     concrete.output_signature, arg_names, keywords,
+                     positional_keywords)
 
   def registered_gradient(self, op_type: str, fdef: tw.FunctionDef):
     """(the gradient function registered for `op_type`, references in
     `fdef` to the tensors it captures)."""
     if op_type not in self._gradients:
-      raise UnsupportedGraphError(f'no gradient registered for {op_type}')
+      raise self.error(f'{fdef.signature.name}: no gradient registered for '
+                       f'{op_type}')
     name = self._gradients[op_type]
     refs = []
     for bound in self._concrete[name].bound_inputs:
       node = self._nodes[bound]
       if (not node.HasField('captured_tensor')
           or node.captured_tensor.concrete_function != fdef.signature.name):
-        raise UnsupportedGraphError(
+        raise self.error(
             f'{name} captures object {bound}, which is no tensor of '
             f'{fdef.signature.name}')
       refs.append(node.captured_tensor.name)  # 'node:index'
@@ -665,48 +821,64 @@ class LoadedSavedModel:
   def gradient_outputs(self, name: str, flat) -> list:
     """A gradient function's outputs in its output structure (None where
     an input has no gradient)."""
-    return _pack(self._concrete[name].output_signature, list(flat))
+    return _pack(self._concrete[name].output_signature, list(flat), self)
 
   def __call__(self, *args, **kwargs):
     if self._call is None:
       raise TypeError('the SavedModel has no __call__')
     return self._call(*args, **kwargs)
 
-  def to_device(self, x) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-      return x.to(self.device)
-    return torch.as_tensor(np.asarray(x), device=self.device)
+  def to_device(self, x, spec: tw.TensorSpecProto = None) -> torch.Tensor:
+    """An input on the device; floats in the dtype of its `spec`."""
+    if not isinstance(x, torch.Tensor):
+      x = torch.as_tensor(np.asarray(x))
+    if spec is not None and spec.dtype in tf_ops.DTYPES:
+      want = tf_ops.DTYPES[spec.dtype]
+      if x.is_floating_point() and want.is_floating_point:
+        x = x.to(want)
+    return x.to(self.device)
+
+  def to_output(self, x):
+    return x.to(self.device) if isinstance(x, torch.Tensor) else x
+
+  def function_def(self, name: str) -> tw.FunctionDef:
+    if name not in self._library:
+      raise self.error(f'no function {name!r} in the library')
+    return self._library[name]
 
   def call_function(self, name: str, args: Sequence) -> List:
     if name not in self._functions:
-      if name not in self._library:
-        raise UnsupportedGraphError(f'no function {name!r} in the library')
-      self._functions[name] = _GraphFunction(self, self._library[name])
+      self._functions[name] = _GraphFunction(self, self.function_def(name))
     return self._functions[name](args)
 
   def run_op(self, node: tw.NodeDef, inputs: list,
              fn: _GraphFunction) -> list:
     op = node.op
-    if op in ('Identity', 'PreventGradient', 'StopGradient'):
-      return [inputs[0]]
-    if op == 'IdentityN':
-      return list(inputs)
-    if op == 'NoOp':
-      return []
-    if op == 'Const':
-      value = _tensor_value(node.attr['value'].tensor)
-      if value.dtype == object:
-        return [value]
-      return [torch.as_tensor(value, device=self.device)]
-    if op == 'ReadVariableOp':  # the captured variable's value itself
-      return [inputs[0]]
-    if op in ('StatefulPartitionedCall', 'PartitionedCall'):
-      return self.call_function(node.attr['f'].func.name, inputs)
-    if op == 'XlaCallModule':
-      return self._xla_call_module(node, inputs, fn)
-    raise UnsupportedGraphError(
-        f'TF op {op} (node {node.name}) is not interpreted: graphs of plain '
-        'TF ops wait; see ROADMAP queue 1')
+    try:
+      if op == 'Const':
+        value = _tensor_value(node.attr['value'].tensor)
+        if value.dtype == object:
+          return [value]
+        tensor = torch.as_tensor(value)
+        if tf_ops.on_host(tensor.dtype, tensor.numel()):
+          return [tensor]
+        return [tensor.to(self.device)]
+      if op == 'ReadVariableOp':  # the captured variable's value itself
+        return [inputs[0]]
+      if op in ('StatefulPartitionedCall', 'PartitionedCall'):
+        return self.call_function(node.attr['f'].func.name, inputs)
+      if op == 'XlaCallModule':
+        return self._xla_call_module(node, inputs, fn)
+      run = tf_ops.OPS.get(op)
+      if run is None:
+        raise UnsupportedGraphError(
+            f'TF op {op} is not in the loader\'s table (io/tf_ops.py); '
+            'see ROADMAP queue 1')
+      return run(self, node, inputs)
+    except (UnsupportedGraphError, stablehlo.UnsupportedOpError) as e:
+      if getattr(e, 'located', False):
+        raise
+      raise self.error(str(e), node) from None
 
   def _xla_call_module(self, node, inputs, fn: _GraphFunction) -> list:
     attr = node.attr
@@ -725,7 +897,7 @@ class LoadedSavedModel:
       program = fn.programs[node.name] = stablehlo.load(attr['module'].s,
                                                         self.device)
     platforms = [p.decode() for p in attr.get('platforms', none).list.s]
-    args = list(inputs)
+    args = [self.to_device(x) for x in inputs]
     if len(platforms) > 1:
       wanted = 'CUDA' if self.device.type == 'cuda' else 'CPU'
       index = platforms.index(wanted) if wanted in platforms else 0

@@ -5,10 +5,12 @@ as `wire.Message` classes, so that `io/tf_export.py` reads and writes
 SavedModels without the `protobuf` or `tensorflow` packages. The field
 numbers, names and kinds are those of TensorFlow's own `.proto` files
 (each class names its message in `TF_NAME`; a test holds every field to
-the installed TensorFlow's descriptors). Fields a SavedModel of the kinds
-read and written here does not use (debug info, assets, slot variables'
-details, full types) are left out: the codec keeps them as unknown fields
-and writes them back unchanged.
+the installed TensorFlow's descriptors). XLA's `xla_data.proto` messages
+that the `Xla*` ops of a jax2tf graph carry as serialized string attrs
+(`ConvolutionDimensionNumbers`, `DotDimensionNumbers`, ...) are here too.
+Fields a SavedModel of the kinds read and written here does not use (debug
+info, assets, slot variables' details, full types) are left out: the codec
+keeps them as unknown fields and writes them back unchanged.
 
 TensorFlow's files are proto3: a field holding its default is not
 written. The builders here set only fields that hold other values.
@@ -284,6 +286,54 @@ SavedModel = _msg('SavedModel', 'tensorflow.SavedModel')
 _fields(SavedModel, _f(1, 'saved_model_schema_version', INT64),
         _f(2, 'meta_graphs', MESSAGE, repeated=True, message=MetaGraphDef))
 
+# --- XLA's attrs (xla_data.proto) --------------------------------------------
+
+ConvolutionDimensionNumbers = _msg('ConvolutionDimensionNumbers',
+                                   'xla.ConvolutionDimensionNumbers')
+_fields(ConvolutionDimensionNumbers,
+        _f(7, 'input_batch_dimension', INT64),
+        _f(8, 'input_feature_dimension', INT64),
+        _f(11, 'input_spatial_dimensions', INT64, repeated=True, packed=True),
+        _f(3, 'kernel_input_feature_dimension', INT64),
+        _f(4, 'kernel_output_feature_dimension', INT64),
+        _f(6, 'kernel_spatial_dimensions', INT64, repeated=True, packed=True),
+        _f(9, 'output_batch_dimension', INT64),
+        _f(10, 'output_feature_dimension', INT64),
+        _f(12, 'output_spatial_dimensions', INT64, repeated=True,
+           packed=True))
+DotDimensionNumbers = _msg('DotDimensionNumbers', 'xla.DotDimensionNumbers')
+_fields(DotDimensionNumbers,
+        _f(1, 'lhs_contracting_dimensions', INT64, repeated=True, packed=True),
+        _f(2, 'rhs_contracting_dimensions', INT64, repeated=True, packed=True),
+        _f(3, 'lhs_batch_dimensions', INT64, repeated=True, packed=True),
+        _f(4, 'rhs_batch_dimensions', INT64, repeated=True, packed=True))
+GatherDimensionNumbers = _msg('GatherDimensionNumbers',
+                              'xla.GatherDimensionNumbers')
+_fields(GatherDimensionNumbers,
+        _f(1, 'offset_dims', INT64, repeated=True, packed=True),
+        _f(2, 'collapsed_slice_dims', INT64, repeated=True, packed=True),
+        _f(3, 'start_index_map', INT64, repeated=True, packed=True),
+        _f(4, 'index_vector_dim', INT64),
+        _f(5, 'operand_batching_dims', INT64, repeated=True, packed=True),
+        _f(6, 'start_indices_batching_dims', INT64, repeated=True,
+           packed=True))
+ScatterDimensionNumbers = _msg('ScatterDimensionNumbers',
+                               'xla.ScatterDimensionNumbers')
+_fields(ScatterDimensionNumbers,
+        _f(1, 'update_window_dims', INT64, repeated=True, packed=True),
+        _f(2, 'inserted_window_dims', INT64, repeated=True, packed=True),
+        _f(3, 'scatter_dims_to_operand_dims', INT64, repeated=True,
+           packed=True),
+        _f(4, 'index_vector_dim', INT64),
+        _f(5, 'input_batching_dims', INT64, repeated=True, packed=True),
+        _f(6, 'scatter_indices_batching_dims', INT64, repeated=True,
+           packed=True))
+# Enums (xla.PrecisionConfig.Precision, .Algorithm) are int32 on the wire.
+PrecisionConfig = _msg('PrecisionConfig', 'xla.PrecisionConfig')
+_fields(PrecisionConfig,
+        _f(1, 'operand_precision', INT32, repeated=True, packed=True),
+        _f(2, 'algorithm', INT32))
+
 # --- checkpoints -------------------------------------------------------------
 
 SerializedTensor = _msg(
@@ -327,4 +377,6 @@ MESSAGES = (
     SavedConcreteFunction, SavedObjectGraph, MetaGraphDef, SavedModel,
     SerializedTensor, TrackableObject, TrackableObjectGraph,
     BundleHeaderProto, TensorSliceProto, BundleEntryProto, TensorShapeProto,
-    TensorShapeProtoDim, TensorProto)
+    TensorShapeProtoDim, TensorProto, ConvolutionDimensionNumbers,
+    DotDimensionNumbers, GatherDimensionNumbers, ScatterDimensionNumbers,
+    PrecisionConfig)

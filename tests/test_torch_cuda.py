@@ -781,3 +781,41 @@ def test_port_export_round_trips_on_the_card(cuda, tmp_path):
   with torch.no_grad(), stablehlo.full_float32():
     want = module(x)
   torch.testing.assert_close(loaded(x), want, rtol=1e-4, atol=1e-5)
+
+
+TF_GRAPH_FIXTURES = (
+    __import__('pathlib').Path(__file__).resolve().parent / 'data'
+    / 'torch_tf_graphs')
+TF_GRAPH_NAMES = sorted(
+    __import__('json').loads((TF_GRAPH_FIXTURES / 'index.json').read_text())
+    ['fixtures'])
+
+
+@pytest.mark.parametrize('name', TF_GRAPH_NAMES)
+def test_tf_op_graphs_run_on_the_card(cuda, name):
+  """The committed graphs of TF ops (jax2tf's pre-native `xla` and
+  `plain` forms) through the port's loader on the card: outputs on
+  `cuda`, TF's recorded outputs within tests/test_torch_tf_graphs.py's
+  tolerances."""
+  import json
+
+  from putting_dune_torch.io import tf_export
+
+  root = TF_GRAPH_FIXTURES / name
+  keys = json.loads((TF_GRAPH_FIXTURES / 'index.json').read_text())[
+      'fixtures'][name]['inputs']
+  x = ({k: np.load(root / f'input_{k}.npy') for k in keys} if keys
+       else np.load(root / 'input.npy'))
+  model = tf_export.load_tf_saved_model(str(root / 'saved_model'),
+                                        device=cuda)
+  out = model(x)
+  out = out if isinstance(out, tuple) else (out,)
+  rtol, atol = ((1e-3, 1e-4) if name.startswith(('atom_detector',
+                                                 'image_aligner'))
+                else (1e-5, 1e-6) if name.startswith('rate_predictor')
+                else (1e-5, 1e-5))
+  for i, got in enumerate(out):
+    assert got.device.type == 'cuda'
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               np.load(root / f'output_{i}.npy'),
+                               rtol=rtol, atol=atol)

@@ -15,8 +15,9 @@ interpreter and the agent.
   * `io/stablehlo.py` on the committed JAX fixtures gives JAX's recorded
     outputs; an unknown op is refused by name;
   * a SavedModel with variables (params as tf.Variables around a jax2tf
-    function) loads with its `ReadVariableOp`s; a graph of plain TF ops is
-    refused naming its op; `with_gradient=True` raises;
+    function) loads with its `ReadVariableOp`s, and a graph of plain TF
+    ops (`MatMul` of a variable) computes x @ w; graphs of TF ops are
+    held in test_torch_tf_graphs.py;
   * the port's `TfSavedModelAgent` and the JAX one agree action for action
     on the committed JAX policy export, over three raw observations and a
     live `relative_random_simple` episode.
@@ -86,6 +87,7 @@ def test_tf_wire_fields_are_tensorflows():
   from tensorflow.core.protobuf import saved_model_pb2  # noqa: F401
   from tensorflow.core.protobuf import tensor_bundle_pb2  # noqa: F401
   from tensorflow.core.protobuf import trackable_object_graph_pb2  # noqa: F401
+  from tensorflow.compiler.xla import xla_data_pb2  # noqa: F401
 
   pool = descriptor_pool.Default()
   checked = 0
@@ -362,8 +364,10 @@ def test_loader_reads_variables_and_refuses_plain_tf_graphs(tmp_path):
   tf.saved_model.save(plain, str(tmp_path / 'plain'))
   loaded = t_tf_export.load_tf_saved_model(str(tmp_path / 'plain'),
                                            device='cpu')
-  with pytest.raises(t_tf_export.UnsupportedGraphError, match='MatMul'):
-    loaded(x)
+  # A graph of plain TF ops is no longer refused (the name is kept from
+  # when it was): its MatMul computes x @ w.
+  np.testing.assert_allclose(loaded(x).numpy(), x @ params['w'], rtol=1e-6,
+                             atol=1e-6)
 
 
 def _saved_graph(save_dir):
