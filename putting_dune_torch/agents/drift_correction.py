@@ -34,6 +34,7 @@ from putting_dune_torch import eval_lib
 from putting_dune_torch import rates as rates_lib
 from putting_dune_torch.agents import planner as planner_lib
 from putting_dune_torch.agents import vision_planner as vp
+from putting_dune_torch.utils import profiling
 
 
 def _prep(images: torch.Tensor) -> torch.Tensor:
@@ -135,8 +136,9 @@ class DriftTracker:
     b_u = (pstate['prev_ll'] - ll) / width[..., None]  # (B, 2)
     expected_rc = torch.stack([-b_u[..., 1] * s, b_u[..., 0] * s], dim=-1)
     max_res_px = self.max_increment_angstroms * s / width
-    shift_rc = estimate_content_shift_px(
-        pstate['prev_map'], maps, expected_rc, max_res_px)
+    with profiling.span('policy.drift_correction'):
+      shift_rc = estimate_content_shift_px(
+          pstate['prev_map'], maps, expected_rc, max_res_px)
     s_u = torch.stack([shift_rc[..., 1] / s, -shift_rc[..., 0] / s], dim=-1)
     increment = width[..., None] * (s_u - b_u)  # the drift's, angstroms
 
@@ -204,27 +206,28 @@ class DriftCorrectedVisionPlannerPolicy(eval_lib.StatefulPolicy):
     self._tracker = DriftTracker(max_increment_angstroms)
 
   def _probs(self, obs):
-    return torch.softmax(self._detector_fn(obs['image']), dim=-1)
+    return vp.detect(self._detector_fn, obs['image'])
 
   def init(self, example_obs):
     return self._tracker.init(self._probs(example_obs)[..., 1], example_obs)
 
   def step(self, pstate, gen, obs, first):
     del gen
-    probs = self._probs(obs)
-    new_state = self._tracker.update(pstate, probs[..., 1], obs, first)
-    action = vp.vision_planner_policy_from_probs(
-        probs,
-        obs['goal_delta_angstroms'] + new_state['drift'],
-        rate_fn=self._rate_fn,
-        dwell_seconds=self._dwell_seconds,
-        max_distance_angstroms=self._max_distance,
-        candidates=self._candidates,
-        # Goal displacements are exact honeycomb vectors: snapping the
-        # de-drifted goal absorbs the corrector's sub-half-site residual.
-        snap_goal_to_lattice=True,
-    )
-    return new_state, action
+    with profiling.span('policy.step'):
+      probs = self._probs(obs)
+      new_state = self._tracker.update(pstate, probs[..., 1], obs, first)
+      action = vp.vision_planner_policy_from_probs(
+          probs,
+          obs['goal_delta_angstroms'] + new_state['drift'],
+          rate_fn=self._rate_fn,
+          dwell_seconds=self._dwell_seconds,
+          max_distance_angstroms=self._max_distance,
+          candidates=self._candidates,
+          # Goal displacements are exact honeycomb vectors: snapping the
+          # de-drifted goal absorbs the corrector's sub-half-site residual.
+          snap_goal_to_lattice=True,
+      )
+      return new_state, action
 
 
 class DriftCorrectedMultiDopantVisionPlannerPolicy(eval_lib.StatefulPolicy):
@@ -258,7 +261,7 @@ class DriftCorrectedMultiDopantVisionPlannerPolicy(eval_lib.StatefulPolicy):
     self._tracker = DriftTracker(max_increment_angstroms)
 
   def _probs(self, obs):
-    return torch.softmax(self._detector_fn(obs['image']), dim=-1)
+    return vp.detect(self._detector_fn, obs['image'])
 
   def init(self, example_obs):
     pstate = self._tracker.init(self._probs(example_obs)[..., 1], example_obs)
@@ -270,28 +273,29 @@ class DriftCorrectedMultiDopantVisionPlannerPolicy(eval_lib.StatefulPolicy):
 
   def step(self, pstate, gen, obs, first):
     del gen
-    probs = self._probs(obs)
-    new_state = self._tracker.update(pstate, probs[..., 1], obs, first)
-    batch = probs.shape[0]
-    deltas = obs['goal_delta_angstroms'].reshape(
-        batch, self._num_dopants, 2)
-    live = torch.linalg.vector_norm(deltas, dim=-1) > 1e-6  # uncorrected
-    corrected = torch.where(
-        live[..., None], deltas + new_state['drift'][:, None, :],
-        torch.zeros_like(deltas))
-    action = vp.multi_dopant_vision_planner_policy_from_probs(
-        probs,
-        corrected,
-        rate_fn=self._rate_fn,
-        num_dopants=self._num_dopants,
-        dwell_seconds=self._dwell_seconds,
-        max_distance_angstroms=self._max_distance,
-        candidates=self._candidates,
-        min_separation_px=self._min_separation_px,
-        live=live,
-        snap_goal_to_lattice=True,
-    )
-    return new_state, action
+    with profiling.span('policy.step'):
+      probs = self._probs(obs)
+      new_state = self._tracker.update(pstate, probs[..., 1], obs, first)
+      batch = probs.shape[0]
+      deltas = obs['goal_delta_angstroms'].reshape(
+          batch, self._num_dopants, 2)
+      live = torch.linalg.vector_norm(deltas, dim=-1) > 1e-6  # uncorrected
+      corrected = torch.where(
+          live[..., None], deltas + new_state['drift'][:, None, :],
+          torch.zeros_like(deltas))
+      action = vp.multi_dopant_vision_planner_policy_from_probs(
+          probs,
+          corrected,
+          rate_fn=self._rate_fn,
+          num_dopants=self._num_dopants,
+          dwell_seconds=self._dwell_seconds,
+          max_distance_angstroms=self._max_distance,
+          candidates=self._candidates,
+          min_separation_px=self._min_separation_px,
+          live=live,
+          snap_goal_to_lattice=True,
+      )
+      return new_state, action
 
 
 @dataclasses.dataclass

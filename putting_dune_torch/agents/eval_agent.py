@@ -35,6 +35,7 @@ from putting_dune_torch.agents import agent_lib
 from putting_dune_torch.agents import msgpack_reader
 from putting_dune_torch.agents import ppo
 from putting_dune_torch.io import serialization
+from putting_dune_torch.utils import profiling
 
 # The JAX package's shipped weights, read in place (never copied).
 MODEL_WEIGHTS_DIR = os.path.join(
@@ -248,7 +249,7 @@ def mean_policy(model: nn.Module):
 
   def policy(gen, obs):
     del gen
-    with torch.no_grad():
+    with profiling.span('policy.step'), torch.no_grad():
       out = model(obs)
     return out[0] if isinstance(out, tuple) else out
 

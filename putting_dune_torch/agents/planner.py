@@ -28,6 +28,7 @@ import torch
 from putting_dune_torch import device as device_lib
 from putting_dune_torch import rates as rates_lib
 from putting_dune_torch.agents import agent_lib
+from putting_dune_torch.utils import profiling
 
 
 def make_candidate_offsets(
@@ -73,7 +74,9 @@ def planner_scores(
   neighbor_deltas = observation[:, 2:8].reshape(batch, 3, 2)
   goal_delta = observation[:, 8:10]
 
-  cand = torch.as_tensor(candidates, dtype=torch.float32, device=device)
+  # Copies from host memory wait for the device: host syncs.
+  with profiling.span('sync.planner_candidates'):
+    cand = torch.as_tensor(candidates, dtype=torch.float32, device=device)
   k = cand.shape[0]
 
   # Rate evaluation for all B*K (env, candidate) pairs in one call.
@@ -81,7 +84,8 @@ def planner_scores(
   nbr = si[:, None, :] + neighbor_deltas  # (B, 3, 2) absolute positions
   nbr_flat = nbr[:, None, :, :].expand(batch, k, 3, 2).reshape(-1, 3, 2)
   beam_flat = (si[:, None, :] + cand[None, :, :]).reshape(-1, 2)
-  r = rate_fn(si_flat, nbr_flat, beam_flat).reshape(batch, k, 3)
+  with profiling.span('policy.rates'):
+    r = rate_fn(si_flat, nbr_flat, beam_flat).reshape(batch, k, 3)
   r = torch.clamp(r, min=0.0)
 
   total = torch.sum(r, dim=-1)  # (B, K)
@@ -127,8 +131,9 @@ def planner_scores(
     p_any = 1.0 - torch.exp(-total * dwell_seconds)  # (B, K)
     return torch.sum(frac * p_any[..., None] * value[:, None, :], dim=-1)
 
-  dwells = torch.as_tensor(dwell_grid_seconds, dtype=torch.float32,
-                           device=device)  # (D,)
+  with profiling.span('sync.planner_dwells'):
+    dwells = torch.as_tensor(dwell_grid_seconds, dtype=torch.float32,
+                             device=device)  # (D,)
   p_any = 1.0 - torch.exp(-total[..., None] * dwells[None, None, :])
   expected_progress = (
       torch.sum(frac * value[:, None, :], dim=-1)[..., None] * p_any
@@ -191,12 +196,14 @@ def planner_policy(
       dwell_objective=dwell_objective,
       overshoot_penalty_angstroms=overshoot_penalty_angstroms,
   )
-  cand = torch.as_tensor(candidates, dtype=torch.float32,
-                         device=observation.device)
+  with profiling.span('sync.planner_candidates'):
+    cand = torch.as_tensor(candidates, dtype=torch.float32,
+                           device=observation.device)
   if dwell_grid_seconds is None:
     return cand[torch.argmax(score, dim=-1)]
-  dwells = torch.as_tensor(dwell_grid_seconds, dtype=torch.float32,
-                           device=observation.device)
+  with profiling.span('sync.planner_dwells'):
+    dwells = torch.as_tensor(dwell_grid_seconds, dtype=torch.float32,
+                             device=observation.device)
   best = torch.argmax(score.reshape(score.shape[0], -1), dim=-1)
   best_k, best_d = best // dwells.shape[0], best % dwells.shape[0]
   span = torch.clamp(dwells[-1] - dwells[0], min=1e-9)
@@ -273,15 +280,19 @@ class MultiDopantPlannerAgent:
         num_angles=self.num_angles,
         max_radius=self.max_distance_angstroms,
     )
-    return lambda gen, obs: multi_dopant_planner_policy(
-        gen,
-        obs,
-        rate_fn=self.rate_fn,
-        num_dopants=self.num_dopants,
-        dwell_seconds=self.dwell_seconds,
-        max_distance_angstroms=self.max_distance_angstroms,
-        candidates=candidates,
-    )
+    def act(gen, obs):
+      with profiling.span('policy.step'):
+        return multi_dopant_planner_policy(
+            gen,
+            obs,
+            rate_fn=self.rate_fn,
+            num_dopants=self.num_dopants,
+            dwell_seconds=self.dwell_seconds,
+            max_distance_angstroms=self.max_distance_angstroms,
+            candidates=candidates,
+        )
+
+    return act
 
 
 @dataclasses.dataclass
@@ -327,14 +338,18 @@ class PlannerAgent(agent_lib.Agent):
     pass
 
   def policy(self):
-    return lambda gen, obs: planner_policy(
-        gen,
-        obs,
-        rate_fn=self.rate_fn,
-        dwell_seconds=self.dwell_seconds,
-        candidates=self._candidates,
-        lookahead_discount=self.lookahead_discount,
-        dwell_grid_seconds=self._dwell_grid,
-        image_duration_seconds=self.image_duration_seconds,
-        dwell_objective=self.dwell_objective,
-    )
+    def act(gen, obs):
+      with profiling.span('policy.step'):
+        return planner_policy(
+            gen,
+            obs,
+            rate_fn=self.rate_fn,
+            dwell_seconds=self.dwell_seconds,
+            candidates=self._candidates,
+            lookahead_discount=self.lookahead_discount,
+            dwell_grid_seconds=self._dwell_grid,
+            image_duration_seconds=self.image_duration_seconds,
+            dwell_objective=self.dwell_objective,
+        )
+
+    return act

@@ -58,6 +58,7 @@ from torch import nn
 from putting_dune_torch import constants
 from putting_dune_torch.parallel import mesh as mesh_lib
 from putting_dune_torch.rate_learning import model as model_lib
+from putting_dune_torch.utils import profiling
 
 METRIC_NAMES = ('loss', 'mean_reward', 'terminal_rate', 'mean_value')
 
@@ -162,16 +163,17 @@ class ActorCritic(nn.Module):
     return self.obs_dim is None
 
   def forward(self, obs):
-    if isinstance(obs, Mapping):
-      x = torch.cat([conv_encode(self.convs, obs['image'], F.relu),
-                     obs['goal_delta_angstroms']], dim=-1)
-    else:
-      x = obs
-    for layer in self.hidden:
-      x = torch.tanh(layer(x))
-    mean = torch.tanh(self.policy_mean(x))
-    value = self.value(x)[..., 0]
-    return mean, self.log_std.expand_as(mean), value
+    with profiling.span('policy.actor_critic'):
+      if isinstance(obs, Mapping):
+        x = torch.cat([conv_encode(self.convs, obs['image'], F.relu),
+                       obs['goal_delta_angstroms']], dim=-1)
+      else:
+        x = obs
+      for layer in self.hidden:
+        x = torch.tanh(layer(x))
+      mean = torch.tanh(self.policy_mean(x))
+      value = self.value(x)[..., 0]
+      return mean, self.log_std.expand_as(mean), value
 
 
 def _goal_delta(obs):

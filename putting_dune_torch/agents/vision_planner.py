@@ -33,6 +33,7 @@ from putting_dune_torch.agents import eval_agent
 from putting_dune_torch.agents import planner as planner_lib
 from putting_dune_torch.atom_detection import model as det_model
 from putting_dune_torch.atom_detection import train as det_train
+from putting_dune_torch.utils import profiling
 
 BOND = constants.CARBON_BOND_DISTANCE_ANGSTROMS
 
@@ -176,6 +177,12 @@ def load_shipped_detector(
   return detector_fn
 
 
+def detect(detector_fn, image: torch.Tensor) -> torch.Tensor:
+  """(B, S, S, 3) class probabilities of (B, S, S, 1) frames."""
+  with profiling.span('policy.detector'):
+    return torch.softmax(detector_fn(image), dim=-1)
+
+
 def _pixel_grid(size: int, device) -> tuple[torch.Tensor, torch.Tensor]:
   """Math-frame pixel centres (x right, y up; row 0 is the image top)."""
   xs = torch.arange(size, dtype=torch.float32, device=device) + 0.5
@@ -278,9 +285,11 @@ def _plan_from_frame(
   theta0 + {0, 120, 240} degrees, one bond long (the detected lattice
   calibrates the pixel scale itself), with the silicon at the origin."""
   batch, device = theta0.shape[0], theta0.device
-  angles = theta0[:, None] + torch.tensor(
-      [0.0, 2.0 * math.pi / 3.0, 4.0 * math.pi / 3.0], device=device
-  )  # (B, 3)
+  # A copy from host memory waits for the device: a host sync.
+  with profiling.span('sync.planner_angles'):
+    thirds = torch.tensor(
+        [0.0, 2.0 * math.pi / 3.0, 4.0 * math.pi / 3.0], device=device)
+  angles = theta0[:, None] + thirds  # (B, 3)
   deltas = BOND * torch.stack(
       [torch.cos(angles), torch.sin(angles)], dim=-1
   )  # (B, 3, 2)
@@ -321,11 +330,13 @@ def vision_planner_policy_from_probs(
   exact site displacement (see snap_to_honeycomb). Returns (B, 2) actions
   in units of max_distance_angstroms.
   """
-  _, _, theta0 = estimate_lattice_frame(probs[..., 2], probs[..., 1])
-  return _plan_from_frame(
-      theta0, goal_delta, rate_fn=rate_fn, dwell_seconds=dwell_seconds,
-      max_distance_angstroms=max_distance_angstroms, candidates=candidates,
-      snap_goal_to_lattice=snap_goal_to_lattice)
+  with profiling.span('policy.lattice_frame'):
+    _, _, theta0 = estimate_lattice_frame(probs[..., 2], probs[..., 1])
+  with profiling.span('policy.planner'):
+    return _plan_from_frame(
+        theta0, goal_delta, rate_fn=rate_fn, dwell_seconds=dwell_seconds,
+        max_distance_angstroms=max_distance_angstroms, candidates=candidates,
+        snap_goal_to_lattice=snap_goal_to_lattice)
 
 
 def vision_planner_policy(
@@ -355,15 +366,16 @@ def vision_planner_policy(
     (B, 2) actions in units of max_distance_angstroms.
   """
   del gen
-  probs = torch.softmax(detector_fn(observation['image']), dim=-1)
-  return vision_planner_policy_from_probs(
-      probs,
-      observation['goal_delta_angstroms'],
-      rate_fn=rate_fn,
-      dwell_seconds=dwell_seconds,
-      max_distance_angstroms=max_distance_angstroms,
-      candidates=candidates,
-  )
+  with profiling.span('policy.step'):
+    probs = detect(detector_fn, observation['image'])
+    return vision_planner_policy_from_probs(
+        probs,
+        observation['goal_delta_angstroms'],
+        rate_fn=rate_fn,
+        dwell_seconds=dwell_seconds,
+        max_distance_angstroms=max_distance_angstroms,
+        candidates=candidates,
+    )
 
 
 def multi_dopant_vision_planner_policy_from_probs(
@@ -414,11 +426,13 @@ def multi_dopant_vision_planner_policy_from_probs(
         + torch.square(y[None] - anchor_px[:, 1][:, None, None]))
   masked_si = torch.where(
       r2 < (0.5 * min_separation_px) ** 2, p_si, torch.zeros_like(p_si))
-  _, _, theta0 = estimate_lattice_frame(masked_si, p_carbon)
-  return _plan_from_frame(
-      theta0, goal_delta, rate_fn=rate_fn, dwell_seconds=dwell_seconds,
-      max_distance_angstroms=max_distance_angstroms, candidates=candidates,
-      snap_goal_to_lattice=snap_goal_to_lattice)
+  with profiling.span('policy.lattice_frame'):
+    _, _, theta0 = estimate_lattice_frame(masked_si, p_carbon)
+  with profiling.span('policy.planner'):
+    return _plan_from_frame(
+        theta0, goal_delta, rate_fn=rate_fn, dwell_seconds=dwell_seconds,
+        max_distance_angstroms=max_distance_angstroms, candidates=candidates,
+        snap_goal_to_lattice=snap_goal_to_lattice)
 
 
 def multi_dopant_vision_planner_policy(
@@ -449,16 +463,17 @@ def multi_dopant_vision_planner_policy(
     the anchor dopant).
   """
   del gen
-  image = observation['image']
-  deltas = observation['goal_delta_angstroms'].reshape(
-      image.shape[0], num_dopants, 2)
-  probs = torch.softmax(detector_fn(image), dim=-1)
-  return multi_dopant_vision_planner_policy_from_probs(
-      probs, deltas, rate_fn=rate_fn, num_dopants=num_dopants,
-      dwell_seconds=dwell_seconds,
-      max_distance_angstroms=max_distance_angstroms, candidates=candidates,
-      min_separation_px=min_separation_px,
-  )
+  with profiling.span('policy.step'):
+    image = observation['image']
+    deltas = observation['goal_delta_angstroms'].reshape(
+        image.shape[0], num_dopants, 2)
+    probs = detect(detector_fn, image)
+    return multi_dopant_vision_planner_policy_from_probs(
+        probs, deltas, rate_fn=rate_fn, num_dopants=num_dopants,
+        dwell_seconds=dwell_seconds,
+        max_distance_angstroms=max_distance_angstroms, candidates=candidates,
+        min_separation_px=min_separation_px,
+    )
 
 
 @dataclasses.dataclass

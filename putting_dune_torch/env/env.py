@@ -35,6 +35,7 @@ from putting_dune_torch.env import action_adapters
 from putting_dune_torch.env import features as features_lib
 from putting_dune_torch.env import goals as goals_lib
 from putting_dune_torch.imaging import render as imaging_render
+from putting_dune_torch.utils import profiling
 
 FIRST = 0
 MID = 1
@@ -148,33 +149,41 @@ class PuttingDuneEnv:
   # -- public API -----------------------------------------------------------
 
   def reset(self, gen: torch.Generator) -> tuple[EnvState, TimeStep]:
-    state, obs = self._fresh_state_and_obs(gen)
-    b = self.batch_size
-    ts = TimeStep(
-        step_type=torch.full((b,), FIRST, dtype=torch.int32,
-                             device=self.device),
-        reward=torch.zeros((b,), device=self.device),
-        discount=_discount(obs.elapsed_seconds),
-        observation=self.features(obs, state.goal),
-        elapsed_seconds=obs.elapsed_seconds,
-    )
-    return state, ts
+    with profiling.span('env_step.step'):
+      state, obs = self._fresh_state_and_obs(gen)
+      b = self.batch_size
+      with profiling.span('env_step.features'):
+        observation = self.features(obs, state.goal)
+      ts = TimeStep(
+          step_type=torch.full((b,), FIRST, dtype=torch.int32,
+                               device=self.device),
+          reward=torch.zeros((b,), device=self.device),
+          discount=_discount(obs.elapsed_seconds),
+          observation=observation,
+          elapsed_seconds=obs.elapsed_seconds,
+      )
+      return state, ts
 
   def step(self, state: EnvState, action: torch.Tensor,
            gen: torch.Generator) -> tuple[EnvState, TimeStep]:
     """Advances every environment one step (auto-resetting finished ones)."""
-    material = state.sim.material
-    si_prev = lattice_lib.site_position(
-        self.lattice, material.si_index, material.offset, material.theta)
-    # The adapter aims at the silicon observed in the last frame, the true
-    # position plus the cumulative drift.
-    ctx = action_adapters.AdapterContext(
-        si_position_microscope=state.sim.fov.material_to_microscope(
-            si_prev + state.sim.drift),
-        fov=state.sim.fov,
-    )
-    adapter_state, control = self.adapter.to_controls(
-        state.adapter_state, ctx, action)
+    with profiling.span('env_step.step'):
+      return self._step(state, action, gen)
+
+  def _step(self, state, action, gen):
+    with profiling.span('env_step.adapter'):
+      material = state.sim.material
+      si_prev = lattice_lib.site_position(
+          self.lattice, material.si_index, material.offset, material.theta)
+      # The adapter aims at the silicon observed in the last frame, the
+      # true position plus the cumulative drift.
+      ctx = action_adapters.AdapterContext(
+          si_position_microscope=state.sim.fov.material_to_microscope(
+              si_prev + state.sim.drift),
+          fov=state.sim.fov,
+      )
+      adapter_state, control = self.adapter.to_controls(
+          state.adapter_state, ctx, action)
     sim_state, obs, kmc_result = simulator_lib.step(
         state.sim, gen, control, self.lattice, self.rate_fn,
         config=self.config.sim,
@@ -184,74 +193,55 @@ class PuttingDuneEnv:
     # package does, so that stepped and fresh observations match leaf for
     # leaf.
     obs = dataclasses.replace(obs, last_controls=None)
-    new_material = sim_state.material
-    si_material = lattice_lib.site_position(
-        self.lattice, new_material.si_index, new_material.offset,
-        new_material.theta)
-    new_goal, goal_ret = goals_lib.reward_and_terminal(
-        state.goal, si_material, obs.elapsed_seconds)
-    step_count = state.step_count + 1
-    terminal = goal_ret.is_terminal
-    truncated = goal_ret.is_truncated
-    if self.config.step_limit is not None:
-      truncated = truncated | (
-          (step_count >= self.config.step_limit) & ~terminal)
-    discount = torch.where(terminal, torch.zeros_like(obs.elapsed_seconds),
-                           _discount(obs.elapsed_seconds))
-    step_type = torch.where(
-        terminal | truncated,
-        torch.full_like(step_count, LAST), torch.full_like(step_count, MID),
-    ).to(torch.int32)
-    stepped_state = EnvState(
-        sim=sim_state, goal=new_goal, adapter_state=adapter_state,
-        step_count=step_count, needs_reset=terminal | truncated,
-        kmc_truncation_count=state.kmc_truncation_count
-        + kmc_result.truncated.to(torch.int32),
-    )
+    with profiling.span('env_step.goal'):
+      new_material = sim_state.material
+      si_material = lattice_lib.site_position(
+          self.lattice, new_material.si_index, new_material.offset,
+          new_material.theta)
+      new_goal, goal_ret = goals_lib.reward_and_terminal(
+          state.goal, si_material, obs.elapsed_seconds)
+      step_count = state.step_count + 1
+      terminal = goal_ret.is_terminal
+      truncated = goal_ret.is_truncated
+      if self.config.step_limit is not None:
+        truncated = truncated | (
+            (step_count >= self.config.step_limit) & ~terminal)
+      discount = torch.where(terminal, torch.zeros_like(obs.elapsed_seconds),
+                             _discount(obs.elapsed_seconds))
+      step_type = torch.where(
+          terminal | truncated,
+          torch.full_like(step_count, LAST), torch.full_like(step_count, MID),
+      ).to(torch.int32)
+      stepped_state = EnvState(
+          sim=sim_state, goal=new_goal, adapter_state=adapter_state,
+          step_count=step_count, needs_reset=terminal | truncated,
+          kmc_truncation_count=state.kmc_truncation_count
+          + kmc_result.truncated.to(torch.int32),
+      )
 
     # Raw observations are selected before features and rendering, so the
     # image is rendered exactly once per step.
     needs = state.needs_reset
-    num_reset = int(needs.sum())
-    chunk = min(self.config.reset_chunk, self.batch_size)
-    if num_reset == 0:
-      new_state, picked_obs = stepped_state, obs
-    elif num_reset <= chunk and chunk < self.batch_size:
-      idx = torch.nonzero(needs)[:, 0]
-      fresh_state, fresh_obs = self._fresh_state_and_obs(
-          gen, render_image=False, batch_size=num_reset)
-
-      def scatter(stepped_leaf, fresh_leaf):
-        out = stepped_leaf.clone()
-        out[idx] = fresh_leaf
-        return out
-
-      new_state = structures.tree_map(scatter, stepped_state, fresh_state)
-      picked_obs = structures.tree_map(scatter, obs, fresh_obs)
-    else:
-      fresh_state, fresh_obs = self._fresh_state_and_obs(
-          gen, render_image=False)
-
-      def pick(fresh_leaf, stepped_leaf):
-        mask = needs.reshape((self.batch_size,)
-                             + (1,) * (stepped_leaf.dim() - 1))
-        return torch.where(mask, fresh_leaf, stepped_leaf)
-
-      new_state = structures.tree_map(pick, fresh_state, stepped_state)
-      picked_obs = structures.tree_map(pick, fresh_obs, obs)
+    with profiling.span('env_step.auto_reset'):
+      with profiling.span('sync.reset_count'):
+        num_reset = int(needs.sum())
+      new_state, picked_obs = self._auto_reset(
+          gen, needs, num_reset, stepped_state, obs)
 
     if self.features.requires_image:
       # The drifted world: the true lattice through the believed FOV
       # shifted by -drift (fresh rows have zero drift).
       render_fov = new_state.sim.fov.shift(-new_state.sim.drift)
-      window = simulator_lib.atom_window(
-          self.lattice, new_state.sim.material, render_fov,
-          self.config.sim.window_capacity)
+      with profiling.span('render.atom_window'):
+        window = simulator_lib.atom_window(
+            self.lattice, new_state.sim.material, render_fov,
+            self.config.sim.window_capacity)
       image = imaging_render.render_stem_image(
           gen, window, render_fov, new_state.sim.imaging,
           image_size=self.config.sim.image_size)
       picked_obs = dataclasses.replace(picked_obs, image=image, window=window)
-    observation = self.features(picked_obs, new_state.goal)
+    with profiling.span('env_step.features'):
+      observation = self.features(picked_obs, new_state.goal)
 
     ts = TimeStep(
         step_type=torch.where(needs, torch.full_like(step_type, FIRST),
@@ -264,6 +254,35 @@ class PuttingDuneEnv:
         elapsed_seconds=picked_obs.elapsed_seconds,
     )
     return new_state, ts
+
+  def _auto_reset(self, gen, needs, num_reset, stepped_state, obs):
+    """The state and raw observation after resetting the `needs` rows."""
+    chunk = min(self.config.reset_chunk, self.batch_size)
+    if num_reset == 0:
+      return stepped_state, obs
+    if num_reset <= chunk and chunk < self.batch_size:
+      with profiling.span('sync.reset_rows'):
+        idx = torch.nonzero(needs)[:, 0]
+      fresh_state, fresh_obs = self._fresh_state_and_obs(
+          gen, render_image=False, batch_size=num_reset)
+
+      def scatter(stepped_leaf, fresh_leaf):
+        out = stepped_leaf.clone()
+        out[idx] = fresh_leaf
+        return out
+
+      return (structures.tree_map(scatter, stepped_state, fresh_state),
+              structures.tree_map(scatter, obs, fresh_obs))
+    fresh_state, fresh_obs = self._fresh_state_and_obs(
+        gen, render_image=False)
+
+    def pick(fresh_leaf, stepped_leaf):
+      mask = needs.reshape((self.batch_size,)
+                           + (1,) * (stepped_leaf.dim() - 1))
+      return torch.where(mask, fresh_leaf, stepped_leaf)
+
+    return (structures.tree_map(pick, fresh_state, stepped_state),
+            structures.tree_map(pick, fresh_obs, obs))
 
   # -- specs ----------------------------------------------------------------
 

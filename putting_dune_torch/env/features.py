@@ -16,6 +16,7 @@ from putting_dune_torch import geometry
 from putting_dune_torch import structures
 from putting_dune_torch.env import goals as goals_lib
 from putting_dune_torch.imaging import render as render_lib
+from putting_dune_torch.utils import profiling
 
 # What a feature constructor returns: one array, or a dict of them.
 Features = Union[torch.Tensor, Dict[str, torch.Tensor]]
@@ -115,7 +116,8 @@ class ImageFeatures:
       raise ValueError('ImageFeatures requires an observation with an image.')
     image = obs.image
     if image.shape[-1] != self.image_size:
-      image = render_lib.resize_bilinear(image, self.image_size)
+      with profiling.span('render.resize'):
+        image = render_lib.resize_bilinear(image, self.image_size)
     features = {
         'image': image[..., None].to(torch.float32),
         'goal_delta_angstroms': _goal_delta_angstroms(obs, goal).to(

@@ -48,6 +48,7 @@ from putting_dune_torch.env import features as features_lib
 from putting_dune_torch.env import goals as goals_lib
 from putting_dune_torch.imaging import params as imaging_params
 from putting_dune_torch.imaging import render as imaging_render
+from putting_dune_torch.utils import profiling
 
 _ACTION_MODES = ('relative', 'absolute')
 _OBSERVATION_MODES = ('vector', 'vector_neighbors', 'image')
@@ -298,7 +299,8 @@ class MultiDopantEnv:
         raise ValueError('image observations require a generator')
       fov = self._fov(state)
       render_fov = fov.shift(-state.drift)
-      window = self._atom_window(state, fov=render_fov)
+      with profiling.span('render.atom_window'):
+        window = self._atom_window(state, fov=render_fov)
       image = imaging_render.render_stem_image(
           gen, window, render_fov, state.imaging, image_size=self.image_size)
       obs = {
@@ -385,16 +387,17 @@ class MultiDopantEnv:
   def reset(self, gen: torch.Generator
             ) -> tuple[MultiDopantState, env_lib.TimeStep]:
     b, dev = self.batch_size, self.device
-    state = self._fresh_state(gen)
-    ts = env_lib.TimeStep(
-        step_type=torch.full((b,), env_lib.FIRST, dtype=torch.int32,
-                             device=dev),
-        reward=torch.zeros((b,), device=dev),
-        discount=torch.ones((b,), device=dev),
-        observation=self._observation(state, gen),
-        elapsed_seconds=torch.zeros((b,), device=dev),
-    )
-    return state, ts
+    with profiling.span('env_step.step'):
+      state = self._fresh_state(gen)
+      ts = env_lib.TimeStep(
+          step_type=torch.full((b,), env_lib.FIRST, dtype=torch.int32,
+                               device=dev),
+          reward=torch.zeros((b,), device=dev),
+          discount=torch.ones((b,), device=dev),
+          observation=self._observation(state, gen),
+          elapsed_seconds=torch.zeros((b,), device=dev),
+      )
+      return state, ts
 
   # ----------------------------------------------------------------- step
 
@@ -402,6 +405,10 @@ class MultiDopantEnv:
            gen: torch.Generator
            ) -> tuple[MultiDopantState, env_lib.TimeStep]:
     """Advances every environment one step (auto-resetting finished ones)."""
+    with profiling.span('env_step.step'):
+      return self._step(state, action, gen)
+
+  def _step(self, state, action, gen):
     b, dev = self.batch_size, self.device
     # The drift advances before the beam lands: the beam misses by one
     # increment.
@@ -423,11 +430,12 @@ class MultiDopantEnv:
     # Believed-frame coordinates sit at +drift from the true sample.
     beam = beam - drift
 
-    result = kmc.apply_control_multi(
-        gen, self.lattice, state.offset, state.theta, state.si_indices, beam,
-        torch.full((b,), self.dwell_seconds, device=dev), self.rate_fn,
-        max_events=self.max_kmc_events_per_step,
-    )
+    with profiling.span('kmc.apply_control'):
+      result = kmc.apply_control_multi(
+          gen, self.lattice, state.offset, state.theta, state.si_indices,
+          beam, torch.full((b,), self.dwell_seconds, device=dev),
+          self.rate_fn, max_events=self.max_kmc_events_per_step,
+      )
     elapsed = torch.full(
         (b,), self.dwell_seconds + self.image_duration_seconds, device=dev)
     new_state = dataclasses.replace(
@@ -470,7 +478,9 @@ class MultiDopantEnv:
     # fresh FIRST timestep instead of being stepped. The fresh batch is
     # skipped on steps where no env finished (the common case).
     needs = state.needs_reset
-    if bool(needs.any()):
+    with profiling.span('sync.reset_any'):
+      any_reset = bool(needs.any())
+    if any_reset:
       fresh = self._fresh_state(gen)
 
       def pick(fresh_leaf, stepped_leaf):

@@ -46,6 +46,7 @@ import torch
 
 from putting_dune_torch.agents import agent_lib
 from putting_dune_torch.env import env as env_lib
+from putting_dune_torch.utils import profiling
 
 EVAL_SUITES = {
     'tiny_eval': tuple(range(10)),
@@ -212,19 +213,25 @@ def evaluate_batched(
   gen = env_lib.make_generator(suite_seed(seeds), device)
 
   with torch.inference_mode():
+    # The loop's own work sits under `eval_loop.setup` and
+    # `eval_loop.accounting`; its calls into the policy and the env under
+    # their spans, so that a bare `eval_loop.step` holds only the calls.
     state, ts = env.reset(gen)
-    batch = env.batch_size
-    done = torch.zeros((batch,), dtype=torch.bool, device=device)
-    reached = torch.zeros_like(done)
-    steps = torch.zeros((batch,), dtype=torch.int32, device=device)
-    env_seconds = ts.elapsed_seconds.clone()
-    reward = torch.zeros((batch,), device=device)
-    kmc_truncations = 0
-    pstate, policy_step = policy_stepper(policy, ts.observation)
-    nvid = min(video_envs, batch) if video_save_dir else 0
-    recorder = _PoseRecorder(state, nvid, max_steps + 1) if nvid else None
+    with profiling.span('eval_loop.setup'):
+      batch = env.batch_size
+      done = torch.zeros((batch,), dtype=torch.bool, device=device)
+      reached = torch.zeros_like(done)
+      steps = torch.zeros((batch,), dtype=torch.int32, device=device)
+      env_seconds = ts.elapsed_seconds.clone()
+      reward = torch.zeros((batch,), device=device)
+      kmc_truncations = 0
+      prev_trunc = state.kmc_truncation_count
+      first = ts.first()
+      pstate, policy_step = policy_stepper(policy, ts.observation)
+      nvid = min(video_envs, batch) if video_save_dir else 0
+      recorder = _PoseRecorder(state, nvid, max_steps + 1) if nvid else None
+      poll = _DonePoll(device)
 
-    poll = _DonePoll(device)
     t_start = time.perf_counter()
     t = 0
     while t < max_steps:
@@ -233,37 +240,51 @@ def evaluate_batched(
         break
       chunk_end = min(t + chunk_steps, max_steps)
       while t < chunk_end and not poll.all_done(done):
-        pstate, action = policy_step(pstate, gen, ts.observation, ts.first())
-        prev_trunc = state.kmc_truncation_count
-        state, ts = env.step(state, action, gen)
-        live = ~done
-        steps = steps + live.to(torch.int32)
-        env_seconds = env_seconds + torch.where(
-            live, ts.elapsed_seconds, torch.zeros_like(ts.elapsed_seconds))
-        reward = reward + torch.where(live, ts.reward,
-                                      torch.zeros_like(ts.reward))
-        terminal = live & (ts.step_type == env_lib.LAST)
-        reached = reached | (terminal & (ts.discount == 0.0))
-        done = done | terminal | (live & ts.first())
-        done = done | (env_seconds + wall > timeout_seconds)
-        kmc_truncations = kmc_truncations + torch.sum(
-            live & (state.kmc_truncation_count > prev_trunc))
-        t += 1
-        if recorder is not None:
-          recorder.record(t, state)
-      if bool(done.all()):
+        with profiling.span('eval_loop.step'):
+          pstate, action = policy_step(pstate, gen, ts.observation, first)
+          state, ts = env.step(state, action, gen)
+          with profiling.span('eval_loop.accounting'):
+            first = ts.first()
+            live = ~done
+            steps = steps + live.to(torch.int32)
+            env_seconds = env_seconds + torch.where(
+                live, ts.elapsed_seconds,
+                torch.zeros_like(ts.elapsed_seconds))
+            reward = reward + torch.where(live, ts.reward,
+                                          torch.zeros_like(ts.reward))
+            terminal = live & (ts.step_type == env_lib.LAST)
+            reached = reached | (terminal & (ts.discount == 0.0))
+            done = done | terminal | (live & first)
+            done = done | (env_seconds + wall > timeout_seconds)
+            kmc_truncations = kmc_truncations + torch.sum(
+                live & (state.kmc_truncation_count > prev_trunc))
+            prev_trunc = state.kmc_truncation_count
+            t += 1
+            if recorder is not None:
+              recorder.record(t, state)
+      with profiling.span('eval_loop.accounting'):
+        with profiling.span('sync.eval_done_all'):
+          all_done = bool(done.all())
+      if all_done:
         break
 
-  kmc_truncations = int(kmc_truncations)
+  with profiling.span('eval_loop.accounting'):
+    with profiling.span('sync.eval_results'):
+      kmc_truncations = int(kmc_truncations)
   if kmc_truncations > 0:
     logging.warning(
         'evaluate_batched: the KMC max_events safety cap truncated %d '
         'step(s); affected episodes ran incomplete dynamics.',
         kmc_truncations)
-  reached_l = reached.tolist()
-  steps_l = steps.tolist()
-  secs_l = env_seconds.tolist()
-  reward_l = reward.tolist()
+  with profiling.span('eval_loop.accounting'):
+    with profiling.span('sync.eval_results'):
+      reached_l = reached.tolist()
+    with profiling.span('sync.eval_results'):
+      steps_l = steps.tolist()
+    with profiling.span('sync.eval_results'):
+      secs_l = env_seconds.tolist()
+    with profiling.span('sync.eval_results'):
+      reward_l = reward.tolist()
   if recorder is not None:
     save_batched_videos(env, seeds, steps_l, recorder.host(), video_save_dir)
   results = [
@@ -297,16 +318,17 @@ class _DonePoll:
     self.pending = False
 
   def all_done(self, done: torch.Tensor) -> bool:
-    if self.pending:
-      if self.cuda and not self.event.query():
-        return False
-      if bool(self.host):
-        return True
-    self.host.copy_(done.all(), non_blocking=self.cuda)
-    if self.cuda:
-      self.event.record()
-    self.pending = True
-    return False
+    with profiling.span('eval_loop.accounting'):
+      if self.pending:
+        if self.cuda and not self.event.query():
+          return False
+        if bool(self.host):
+          return True
+      self.host.copy_(done.all(), non_blocking=self.cuda)
+      if self.cuda:
+        self.event.record()
+      self.pending = True
+      return False
 
 
 def video_pose(state, count: int):

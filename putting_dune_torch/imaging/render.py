@@ -25,6 +25,7 @@ from putting_dune_torch.imaging import clahe as clahe_lib
 from putting_dune_torch.imaging import noise as noise_lib
 from putting_dune_torch.ops import noise_fused
 from putting_dune_torch.ops import splat as splat_lib
+from putting_dune_torch.utils import profiling
 
 SPLAT_BACKENDS = ('auto', 'fused')
 NOISE_BACKENDS = ('fused', 'stages')
@@ -84,19 +85,20 @@ def render_clean_image(
     raise ValueError(
         f'backend must be one of {SPLAT_BACKENDS}, got {backend!r}.')
   s = image_size
-  bx, by, weights, sigma_x, sigma_y = _splat_inputs(
-      window, fov, intensity_exponent, s, blur_amount
-  )
-  if backend == 'fused':
-    return splat_lib.splat_render(
-        bx.contiguous(), by.contiguous(), weights.contiguous(),
-        sigma_x.contiguous(), sigma_y.contiguous(), image_size=s)
-  gx = _splat_axis_kernels(bx, sigma_x, s)  # (B, K, S)
-  gy = _splat_axis_kernels(by, sigma_y, s) * weights[..., None]
-  image = torch.bmm(gy.transpose(1, 2), gx)  # (B, S_y, S_x)
-  image = torch.flip(image, dims=(-2,))
-  peak = torch.amax(image, dim=(-2, -1), keepdim=True)
-  return image / torch.clamp(peak, min=1e-20)
+  with profiling.span('render.splat'):
+    bx, by, weights, sigma_x, sigma_y = _splat_inputs(
+        window, fov, intensity_exponent, s, blur_amount
+    )
+    if backend == 'fused':
+      return splat_lib.splat_render(
+          bx.contiguous(), by.contiguous(), weights.contiguous(),
+          sigma_x.contiguous(), sigma_y.contiguous(), image_size=s)
+    gx = _splat_axis_kernels(bx, sigma_x, s)  # (B, K, S)
+    gy = _splat_axis_kernels(by, sigma_y, s) * weights[..., None]
+    image = torch.bmm(gy.transpose(1, 2), gx)  # (B, S_y, S_x)
+    image = torch.flip(image, dims=(-2,))
+    peak = torch.amax(image, dim=(-2, -1), keepdim=True)
+    return image / torch.clamp(peak, min=1e-20)
 
 
 def render_stem_image(
@@ -125,13 +127,15 @@ def render_stem_image(
       window, fov, params.intensity_exponent, image_size=image_size,
       blur_amount=params.blur_amount,
   )
-  if noise_backend == 'stages':
-    image = noise_lib.apply_stages(gen, image, params)
-  else:
-    packed = noise_fused.pack_params(params, image.shape[0])
-    image = noise_fused.noise_chain(image, packed, gen=gen)
+  with profiling.span('render.noise'):
+    if noise_backend == 'stages':
+      image = noise_lib.apply_stages(gen, image, params)
+    else:
+      packed = noise_fused.pack_params(params, image.shape[0])
+      image = noise_fused.noise_chain(image, packed, gen=gen)
   if apply_clahe:
-    image = clahe_lib.equalize_adapthist(image, clip_limit=0.01)
+    with profiling.span('render.clahe'):
+      image = clahe_lib.equalize_adapthist(image, clip_limit=0.01)
   return image
 
 

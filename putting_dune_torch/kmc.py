@@ -3,7 +3,8 @@
 Port of putting_dune_tpu/kmc.py `apply_control` and `apply_control_multi`.
 The JAX package runs the whole batch inside one lax.while_loop; here the
 same body is torch ops in a Python loop that runs while any lane is
-active. The laws are the JAX package's:
+active: one `kmc.round` span a round, each after the host has read
+whether any lane is active (`sync.kmc_active`). The laws are the JAX package's:
 
   * waiting time dt = -log1p(-u0) / total, clipped at 3600 s;
   * an event fires when elapsed + dt <= dwell, the loop continues while
@@ -25,6 +26,13 @@ import torch
 from putting_dune_torch import constants
 from putting_dune_torch import lattice as lattice_lib
 from putting_dune_torch import rates as rates_lib
+from putting_dune_torch.utils import profiling
+
+
+def _any_active(active: torch.Tensor) -> bool:
+  """Whether another event round runs: the loop's one host sync a round."""
+  with profiling.span('sync.kmc_active'):
+    return bool(active.any())
 
 
 class KMCResult(NamedTuple):
@@ -92,45 +100,46 @@ def apply_control(
   trunc = torch.zeros((batch,), dtype=torch.bool, device=device)
   slots = torch.arange(num_record, device=device)[:, None]
 
-  while bool(active.any()):
-    nbr_idx = lattice.neighbors[si]  # (B, 3)
-    idx4 = torch.cat([si[:, None], nbr_idx], dim=-1)
-    canon = lattice.positions[idx4] + offset[:, None, :]  # (B, 4, 2)
-    cx, cy = canon[..., 0], canon[..., 1]
-    world = torch.stack(
-        [cx * cos_t - cy * sin_t, cx * sin_t + cy * cos_t], dim=-1
-    )
-    si_pos, nbr_pos = world[:, 0, :], world[:, 1:, :]
+  while _any_active(active):
+    with profiling.span('kmc.round'):
+      nbr_idx = lattice.neighbors[si]  # (B, 3)
+      idx4 = torch.cat([si[:, None], nbr_idx], dim=-1)
+      canon = lattice.positions[idx4] + offset[:, None, :]  # (B, 4, 2)
+      cx, cy = canon[..., 0], canon[..., 1]
+      world = torch.stack(
+          [cx * cos_t - cy * sin_t, cx * sin_t + cy * cos_t], dim=-1
+      )
+      si_pos, nbr_pos = world[:, 0, :], world[:, 1:, :]
 
-    rates = rate_fn(si_pos, nbr_pos, beam_position)
-    cum = torch.cumsum(rates, dim=-1)
-    total_rate = cum[:, -1]
+      rates = rate_fn(si_pos, nbr_pos, beam_position)
+      cum = torch.cumsum(rates, dim=-1)
+      total_rate = cum[:, -1]
 
-    u = torch.rand((batch, 2), generator=gen, device=device)
-    dt = -torch.log1p(-u[:, 0]) / total_rate
-    dt = torch.clamp(dt, max=constants.MAX_WAITING_TIME_SECONDS)
-    new_elapsed = elapsed + dt
+      u = torch.rand((batch, 2), generator=gen, device=device)
+      dt = -torch.log1p(-u[:, 0]) / total_rate
+      dt = torch.clamp(dt, max=constants.MAX_WAITING_TIME_SECONDS)
+      new_elapsed = elapsed + dt
 
-    fired = active & (new_elapsed <= dwell_seconds)
-    choice = torch.sum(
-        (u[:, 1:] * total_rate[:, None]) >= cum[:, :2], dim=-1
-    )
-    candidate = torch.gather(nbr_idx, 1, choice[:, None])[:, 0]
-    new_si = torch.where(fired, candidate, si)
-    new_count = count + fired.to(torch.int32)
+      fired = active & (new_elapsed <= dwell_seconds)
+      choice = torch.sum(
+          (u[:, 1:] * total_rate[:, None]) >= cum[:, :2], dim=-1
+      )
+      candidate = torch.gather(nbr_idx, 1, choice[:, None])[:, 0]
+      new_si = torch.where(fired, candidate, si)
+      new_count = count + fired.to(torch.int32)
 
-    if num_record > 0:
-      write = (slots == count[None, :]) & fired[None, :]
-      ev_t = torch.where(write, new_elapsed[None, :], ev_t)
-      ev_s = torch.where(write, new_si[None, :], ev_s)
+      if num_record > 0:
+        write = (slots == count[None, :]) & fired[None, :]
+        ev_t = torch.where(write, new_elapsed[None, :], ev_t)
+        ev_s = torch.where(write, new_si[None, :], ev_s)
 
-    new_active = active & (new_elapsed < dwell_seconds)
-    if max_events is not None:
-      hit_cap = new_count >= max_events
-      trunc = trunc | (new_active & hit_cap)
-      new_active = new_active & ~hit_cap
-    elapsed = torch.where(active, new_elapsed, elapsed)
-    si, count, active = new_si, new_count, new_active
+      new_active = active & (new_elapsed < dwell_seconds)
+      if max_events is not None:
+        hit_cap = new_count >= max_events
+        trunc = trunc | (new_active & hit_cap)
+        new_active = new_active & ~hit_cap
+      elapsed = torch.where(active, new_elapsed, elapsed)
+      si, count, active = new_si, new_count, new_active
 
   return KMCResult(si, count, ev_t, ev_s, trunc)
 
@@ -185,41 +194,42 @@ def apply_control_multi(
   trunc = torch.zeros((batch,), dtype=torch.bool, device=device)
   dopant_ids = torch.arange(num_dopants, device=device)[None, :]
 
-  while bool(active.any()):
-    nbr_idx = lattice.neighbors[si]  # (B, D, 3)
-    si_pos = lattice_lib.site_position(lattice, si, offset, theta)
-    nbr_pos = lattice_lib.site_position(lattice, nbr_idx, offset, theta)
-    rates = torch.stack(
-        [rate_fn(si_pos[:, d], nbr_pos[:, d], beam_position)
-         for d in range(num_dopants)], dim=1)  # (B, D, 3)
+  while _any_active(active):
+    with profiling.span('kmc.round'):
+      nbr_idx = lattice.neighbors[si]  # (B, D, 3)
+      si_pos = lattice_lib.site_position(lattice, si, offset, theta)
+      nbr_pos = lattice_lib.site_position(lattice, nbr_idx, offset, theta)
+      rates = torch.stack(
+          [rate_fn(si_pos[:, d], nbr_pos[:, d], beam_position)
+           for d in range(num_dopants)], dim=1)  # (B, D, 3)
 
-    occupied = (nbr_idx[..., None] == si[:, None, None, :]).any(-1)
-    rates = torch.where(occupied, torch.zeros_like(rates), rates)
+      occupied = (nbr_idx[..., None] == si[:, None, None, :]).any(-1)
+      rates = torch.where(occupied, torch.zeros_like(rates), rates)
 
-    flat_rates = rates.reshape(batch, num_dopants * 3)
-    cum = torch.cumsum(flat_rates, dim=-1)
-    total = cum[:, -1]
-    u = torch.rand((batch, 2), generator=gen, device=device)
-    dt = -torch.log1p(-u[:, 0]) / torch.clamp(total, min=1e-30)
-    dt = torch.clamp(dt, max=constants.MAX_WAITING_TIME_SECONDS)
-    new_elapsed = elapsed + dt
-    fired = active & (new_elapsed <= dwell_seconds)
+      flat_rates = rates.reshape(batch, num_dopants * 3)
+      cum = torch.cumsum(flat_rates, dim=-1)
+      total = cum[:, -1]
+      u = torch.rand((batch, 2), generator=gen, device=device)
+      dt = -torch.log1p(-u[:, 0]) / torch.clamp(total, min=1e-30)
+      dt = torch.clamp(dt, max=constants.MAX_WAITING_TIME_SECONDS)
+      new_elapsed = elapsed + dt
+      fired = active & (new_elapsed <= dwell_seconds)
 
-    # Inverse cdf: the first channel whose cumulative rate exceeds
-    # u * total; zero-rate channels are never chosen.
-    choice = torch.sum(
-        (u[:, 1:] * total[:, None]) >= cum[:, :-1], dim=-1)
-    dopant = choice // 3
-    target = torch.gather(
-        nbr_idx.reshape(batch, -1), 1, choice[:, None])[:, 0]
-    si = torch.where(
-        (dopant_ids == dopant[:, None]) & fired[:, None], target[:, None], si)
-    count = count + fired.to(torch.int32)
-    active = active & (new_elapsed < dwell_seconds)
-    if max_events is not None:
-      hit_cap = count >= max_events
-      trunc = trunc | (active & hit_cap)
-      active = active & ~hit_cap
-    elapsed = torch.where(active | fired, new_elapsed, elapsed)
+      # Inverse cdf: the first channel whose cumulative rate exceeds
+      # u * total; zero-rate channels are never chosen.
+      choice = torch.sum(
+          (u[:, 1:] * total[:, None]) >= cum[:, :-1], dim=-1)
+      dopant = choice // 3
+      target = torch.gather(
+          nbr_idx.reshape(batch, -1), 1, choice[:, None])[:, 0]
+      si = torch.where(
+          (dopant_ids == dopant[:, None]) & fired[:, None], target[:, None], si)
+      count = count + fired.to(torch.int32)
+      active = active & (new_elapsed < dwell_seconds)
+      if max_events is not None:
+        hit_cap = count >= max_events
+        trunc = trunc | (active & hit_cap)
+        active = active & ~hit_cap
+      elapsed = torch.where(active | fired, new_elapsed, elapsed)
 
   return MultiDopantKMCResult(si, count, trunc)

@@ -29,6 +29,7 @@ import torch
 
 from putting_dune_torch import structures
 from putting_dune_torch.ops import _build
+from putting_dune_torch.utils import profiling
 
 _POISSON_SMALL_LAMBDA = 4.0
 _POISSON_INVERSION_TERMS = 12
@@ -60,7 +61,8 @@ def pack_params(params: structures.ImagingParams, batch: int) -> torch.Tensor:
   which is the same law only for small Poisson rates.
   """
   jitter = params.jitter_rate
-  peak = float(torch.max(jitter)) if jitter.numel() else 0.0
+  with profiling.span('sync.noise_jitter'):
+    peak = float(torch.max(jitter)) if jitter.numel() else 0.0
   if peak > _MAX_JITTER_RATE:
     raise ValueError(
         f'jitter_rate {peak} exceeds {_MAX_JITTER_RATE}: the fused noise '

@@ -41,6 +41,7 @@ from putting_dune_torch import rates as rates_lib
 from putting_dune_torch import structures
 from putting_dune_torch.imaging import params as imaging_params
 from putting_dune_torch.imaging import render as imaging_render
+from putting_dune_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,7 +156,8 @@ def _observe(
   window = None
   image = None
   if return_window or return_image:
-    window = atom_window(lattice, material, fov, config.window_capacity)
+    with profiling.span('render.atom_window'):
+      window = atom_window(lattice, material, fov, config.window_capacity)
   if return_image:
     if gen is None:
       raise ValueError('return_image requires a generator.')
@@ -243,12 +245,13 @@ def step(
   material = state.material
   # Believed-frame coordinates sit at +drift from the true sample frame.
   beam_material = state.fov.microscope_to_material(control.position) - drift
-  result = kmc.apply_control(
-      gen, lattice, material.offset, material.theta, material.si_index,
-      beam_material, control.dwell_seconds, rate_fn,
-      record_events=record_events,
-      max_events=config.max_kmc_events_per_step,
-  )
+  with profiling.span('kmc.apply_control'):
+    result = kmc.apply_control(
+        gen, lattice, material.offset, material.theta, material.si_index,
+        beam_material, control.dwell_seconds, rate_fn,
+        record_events=record_events,
+        max_events=config.max_kmc_events_per_step,
+    )
   material = dataclasses.replace(material, si_index=result.si_index)
 
   elapsed = control.dwell_seconds + config.image_duration_seconds

@@ -6,6 +6,15 @@ torch.profiler trace (CPU and, where there is a card, CUDA activity) into
 warm-up, `timed` is a wall-clock timer. Device work is asynchronous: end
 a timed region with `torch.cuda.synchronize()` (or read a value back) so
 that it counts the work and not its enqueueing.
+
+`span(name)` marks a stage of the program on the profiler's timeline
+while a torch.profiler records, and is a shared no-op otherwise. A span's
+name is `<layer>.<stage>`: `eval_loop`, `policy`, `env_step`, `kmc` and
+`render` name the program's layers, and a `sync.<site>` span brackets one
+host sync (a read of a device value on the host, or a copy from pageable
+host memory, which waits for the device), so that a trace counts KMC
+rounds and host syncs where they happen and puts the device's idle time
+down to the layer that kept the host busy.
 """
 
 from __future__ import annotations
@@ -16,6 +25,16 @@ import time
 from typing import Iterator, Optional
 
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+  """`torch.profiler.record_function(name)` while a profiler records, else
+  one shared null context: no allocation, no effect on the program."""
+  if torch.autograd._profiler_enabled():  # pylint: disable=protected-access
+    return torch.profiler.record_function(name)
+  return _NO_SPAN
 
 
 @contextlib.contextmanager

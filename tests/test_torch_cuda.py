@@ -819,3 +819,48 @@ def test_tf_op_graphs_run_on_the_card(cuda, name):
     np.testing.assert_allclose(got.cpu().numpy(),
                                np.load(root / f'output_{i}.npy'),
                                rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize('experiment_name', [
+    'ppo_simple_images_tf', 'vision_planner_simple_rates'])
+def test_every_host_sync_of_a_loop_step_has_a_span(cuda, experiment_name):
+  """One loop step of the pixel policy's and of the vision planner's
+  batched evaluation (its reset, one policy call and env step, and the
+  read of the results) at batch 8 and the 512^2 render: under
+  `set_sync_debug_mode('warn')` it raises as many synchronizing-operation
+  warnings as its trace has `sync.*` spans, so that every host sync on the
+  path is named."""
+  import warnings
+
+  from putting_dune_torch import eval as eval_cli
+  from putting_dune_torch import eval_lib
+  from putting_dune_torch import registry
+  from putting_dune_torch import run_helpers
+
+  experiment = registry.create_eval_experiment(experiment_name)
+  policy = eval_cli.policy_for_agent(experiment.get_policy(
+      experiment.get_adapters_and_goal(), cuda))
+  env = run_helpers.create_batched_env(
+      experiment.get_adapters_and_goal, experiment.get_simulator_config,
+      batch_size=8, image_size=512, device=cuda)
+  seeds = list(range(8))
+  eval_lib.evaluate_batched(env, policy, seeds, max_steps=2)
+  torch.cuda.synchronize()
+  activities = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=activities) as prof:
+    with warnings.catch_warnings(record=True) as caught:
+      warnings.simplefilter('always')
+      torch.cuda.set_sync_debug_mode('warn')
+      try:
+        eval_lib.evaluate_batched(env, policy, seeds, max_steps=1)
+      finally:
+        torch.cuda.set_sync_debug_mode(0)
+  syncs = [f'{w.filename}:{w.lineno}' for w in caught
+           if 'called a synchronizing' in str(w.message)]
+  # The host's spans; the profiler also lists each on the device's
+  # timeline.
+  spans = [e.name for e in prof.events() if e.name.startswith('sync.')
+           and e.device_type == torch.autograd.DeviceType.CPU]
+  assert syncs
+  assert len(syncs) == len(spans), (syncs, spans)
