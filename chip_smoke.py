@@ -45,12 +45,14 @@ Phases (any failure exits non-zero before the final line):
   10. path B: `vision_planner_simple_rates` on small_eval (512^2 render ->
       256^2 features -> UNet -> lattice frame -> planner), success >= 0.90;
       `planner_simple_rates` on small_eval, success >= 0.95;
-  11. `splat_render` against its twin and against the default route
-      (`_splat_axis_kernels` + `torch.bmm`) on the atom windows of a
-      `multi_dopant_3_vision_planner` env at batch 100, at S = 256 and 512
-      (max |d| <= 1e-5) and bit-equal (max |d| 0) to
+  11. `splat_render` (the card's `backend='auto'`) against its twin, the
+      bmm route (two (B, K, S) factor tensors and `torch.bmm`), on the
+      atom windows of a `multi_dopant_3_vision_planner` env at batch 100,
+      at S = 256 and 512, and bit-equal (max |d| 0) to both the twin and
       `splat_render_atom_order`, also at (1, 77, 200) and with a radius
-      above a block's band of rows; timed beside both and its bound;
+      above a block's band of rows; timed beside the twin and its bound,
+      and at (1024, 512, 512), those windows repeated (the pixel cell's
+      batch);
   12. `clahe_interp` against its twin on the dual blocks of that env's
       noisy frames at (100, 81, 1024) and (100, 81, 4096) with 256 bins and
       at 128 bins (max |d| <= 1e-6); `equalize_adapthist(backend='interp')`
@@ -742,9 +744,10 @@ def rate_stack(dev, run_eval, eval_reports, path_launches) -> dict:
         'ms_per_step': 1e3 * rep['wall_seconds'] * 100 / rep['env_steps']}
     if name.startswith('vision_'):
       path_launches[f'{name}_512'] = counted
-      for kernel in ('noise_chain', 'clahe_hist_lut', 'clahe_remap'):
+      for kernel in ('splat_render', 'noise_chain', 'clahe_hist_lut',
+                     'clahe_remap'):
         check(counted[kernel] > 0, f'{kernel} was not launched on {name}')
-      for kernel in ('splat_render', 'clahe_interp', 'clahe_small'):
+      for kernel in ('clahe_interp', 'clahe_small'):
         check(counted[kernel] == 0, f'{kernel} launched on a default route')
   try:
     eval_cli.main(eval_cli.Args(
@@ -997,11 +1000,12 @@ def _training(dev, eval_reports, path_launches, tmp) -> dict:
   env, trainer, carry, counted, seconds, steps = pixel_run(128, 10)
   path_launches['ppo_pixel_128'] = counted
   # One render a rollout step, and one for the reset.
-  check(counted['noise_chain'] == steps + 1 and
+  check(counted['splat_render'] == steps + 1 and
+        counted['noise_chain'] == steps + 1 and
         counted['clahe_small'] == steps + 1,
-        '18b: noise_chain and clahe_small not once a step and reset')
-  for name in ('clahe_hist_lut', 'clahe_remap', 'splat_render',
-               'clahe_interp'):
+        '18b: splat_render, noise_chain and clahe_small not once a step and '
+        'reset')
+  for name in ('clahe_hist_lut', 'clahe_remap', 'clahe_interp'):
     check(counted[name] == 0, f'18b: {name} launched at the 128^2 render')
   roll_ms, grad_ms = time_update(trainer, carry)
   saved = os.path.join(tmp, 'pixel')
@@ -1030,7 +1034,8 @@ def _training(dev, eval_reports, path_launches, tmp) -> dict:
   torch.cuda.empty_cache()
   env, trainer, carry, counted, seconds, steps = pixel_run(None, 2)
   path_launches['ppo_pixel_512'] = counted
-  for name in ('noise_chain', 'clahe_hist_lut', 'clahe_remap'):
+  for name in ('splat_render', 'noise_chain', 'clahe_hist_lut',
+               'clahe_remap'):
     check(counted[name] == steps + 1,
           f'18b: {name} not once a step and reset at the 512^2 render')
   check(counted['clahe_small'] == 0, '18b: clahe_small launched at 512^2')
@@ -3900,7 +3905,7 @@ def main() -> None:
   check(agg['average_num_times_reached_goal'] >= 0.95, 'pixel policy success')
   check(abs(agg['average_num_actions_taken'] - 30.09) <= 6.0,
         'pixel policy average actions outside 30.09 +- 6')
-  for name in ('noise_chain', 'clahe_hist_lut', 'clahe_remap'):
+  for name in ('splat_render', 'noise_chain', 'clahe_hist_lut', 'clahe_remap'):
     check(launches[name] > 0, f'{name} was not launched on the main path')
 
   # Observation check on a small batch: finite frames of the policy's shape.
@@ -4163,7 +4168,7 @@ def main() -> None:
           and bool(((mask == 0) | (mask == 1)).all()), 'masks are not one-hot')
     check(bool((mask[:, size // 2, size // 2, 2] == 1).all()),
           'the silicon is not labelled at the centre')
-    for name in ('noise_chain',) + on_route:
+    for name in ('splat_render', 'noise_chain') + on_route:
       check(counted[name] > 0, f'{name} was not launched by sample_batch '
             f'at {size}^2')
     for name in off_route:
@@ -4234,7 +4239,7 @@ def main() -> None:
 
   counted = run_eval('vision_planner_simple_rates', 0.90)
   path_launches['vision_planner_512'] = counted
-  for name in ('noise_chain', 'clahe_hist_lut', 'clahe_remap'):
+  for name in ('splat_render', 'noise_chain', 'clahe_hist_lut', 'clahe_remap'):
     check(counted[name] > 0, f'{name} was not launched on path B')
   run_eval('planner_simple_rates', 0.95)
 
@@ -4253,13 +4258,6 @@ def main() -> None:
   md_fov = md_env._fov(md_state)
   check(tuple(md_window.positions.shape) == (100, 512, 2), 'atom window shape')
 
-  def default_splat(bx, by, wts, sx, sy, size):
-    gx = render_lib._splat_axis_kernels(bx, sx, size)
-    gy = render_lib._splat_axis_kernels(by, sy, size) * wts[..., None]
-    image = torch.flip(torch.bmm(gy.transpose(1, 2), gx), dims=(-2,))
-    peak = torch.amax(image, dim=(-2, -1), keepdim=True)
-    return image / torch.clamp(peak, min=1e-20)
-
   splat_rows, clean_md = {}, {}
   for size in (256, 512):
     operands = [t.contiguous() for t in render_lib._splat_inputs(
@@ -4268,25 +4266,22 @@ def main() -> None:
     bx, by, wts, sx, sy = operands
     got = splat_lib.splat_render(*operands, image_size=size)
     want = splat_lib.splat_render_reference(*operands, image_size=size)
-    route = default_splat(*operands, size)
     exact = splat_lib.splat_render_atom_order(*operands, image_size=size)
     torch.cuda.synchronize()
     err_twin = float((got - want).abs().max())
-    err_route = float((got - route).abs().max())
     err_exact = float((got - exact).abs().max())
     real = int((wts > 0).sum())
-    print(f'splat_render (100, 512, {size}): {real} real atoms, max|d| vs twin '
-          f'= {err_twin:.3g}, vs the default route = {err_route:.3g}, vs the '
-          f'atom-order version = {err_exact:.3g}', flush=True)
+    print(f'splat_render (100, 512, {size}): {real} real atoms, max|d| vs the '
+          f'twin (the bmm route) = {err_twin:.3g}, vs the atom-order version '
+          f'= {err_exact:.3g}', flush=True)
     check(bool(torch.isfinite(got).all()) and float(got.amax()) == 1.0,
           'splat_render frames are not max-normalized')
-    check(err_twin <= 1e-5, f'splat_render disagrees with its twin at {size}')
-    check(err_route <= 1e-5,
-          f'splat_render disagrees with the default route at {size}')
+    # One fused multiply-add an atom in atom order: cuBLAS's f32 GEMM.
+    check(err_twin == 0.0,
+          f'splat_render differs from its twin (the bmm route) at {size}')
     check(err_exact == 0.0,
           f'splat_render differs from the atom-order version at {size}')
-    del exact
-    del want, route
+    del want, exact
     # Work this run's data needs: two operations per (real atom, pixel of
     # its truncated support); the dense contraction is given beside it.
     support = ((2 * torch.floor(4 * sx + 0.5) + 1)
@@ -4301,16 +4296,15 @@ def main() -> None:
         *operands, image_size=size), KERNEL_NAMES['splat_render'])
     t_twin = time_ms(lambda: splat_lib.splat_render_reference(
         *operands, image_size=size), repeats=10)
-    t_route = time_ms(lambda: default_splat(*operands, size), repeats=10)
     print(f'splat_render (100, 512, {size}): {t_kernel:.4f} ms (device '
-          f'{fmt_ms(d_kernel)}), twin {t_twin:.4f} ms, default route '
-          f'{t_route:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); dense '
-          f'contraction {dense_ops / F32_OPS_PER_S * 1e3:.4f} ms', flush=True)
+          f'{fmt_ms(d_kernel)}), twin (the bmm route) {t_twin:.4f} ms, bound '
+          f'{bound_ms:.4f} ms ({bound_by}); dense contraction '
+          f'{dense_ops / F32_OPS_PER_S * 1e3:.4f} ms', flush=True)
     splat_rows[size] = {
         'shape': [100, 512, size], 'ms': t_kernel, 'device_ms': d_kernel,
         'plain_ms': t_twin, 'bound_ms': bound_ms, 'bound_by': bound_by,
         'max_abs_err': err_twin, 'atom_order_max_abs_err': err_exact,
-        'library_ms': t_route,
+        'library_ms': t_twin,
         'dense_contraction_ms': dense_ops / F32_OPS_PER_S * 1e3}
     clean_md[size] = got
   # Small shapes, bit-equal to the atom-order version: one frame of 77
@@ -4329,15 +4323,41 @@ def main() -> None:
           f'rows: max|d| vs the atom-order version = {err_s:.3g}', flush=True)
     check(err_s == 0.0, f'splat_render differs from the atom-order version '
           f'at {(b_s, k_s, s_s)}')
+  # The pixel cell's batch, 1024 frames at 512^2: the 100 windows repeated.
+  big = [torch.cat([t] * 11)[:1024].contiguous() for t in operands]
+  got = splat_lib.splat_render(*big, image_size=512)
+  err_big = float((got - splat_lib.splat_render_reference(
+      *big, image_size=512)).abs().max())
+  check(err_big == 0.0, 'splat_render differs from its twin (the bmm route) '
+        'at (1024, 512, 512)')
+  support = ((2 * torch.floor(4 * big[3] + 0.5) + 1)
+             * (2 * torch.floor(4 * big[4] + 0.5) + 1))
+  bound_ms, bound_by = bound(
+      4.0 * (got.numel() + 3 * big[0].numel() + 2 * big[3].numel()),
+      2.0 * float(((big[2] > 0).sum(dim=1) * support).sum()))
+  t_kernel = time_ms(lambda: splat_lib.splat_render(*big, image_size=512))
+  d_kernel = device_ms(lambda: splat_lib.splat_render(*big, image_size=512),
+                       KERNEL_NAMES['splat_render'])
+  t_twin = time_ms(lambda: splat_lib.splat_render_reference(
+      *big, image_size=512), repeats=10)
+  print(f'splat_render (1024, 512, 512): {t_kernel:.4f} ms (device '
+        f'{fmt_ms(d_kernel)}), twin (the bmm route) {t_twin:.4f} ms, bound '
+        f'{bound_ms:.4f} ms ({bound_by}); max|d| vs the twin = '
+        f'{err_big:.3g}', flush=True)
+  other_shapes['splat_render'].append({
+      'shape': [1024, 512, 512], 'ms': t_kernel, 'device_ms': d_kernel,
+      'plain_ms': t_twin, 'bound_ms': bound_ms, 'bound_by': bound_by,
+      'max_abs_err': err_big, 'library_ms': t_twin})
+  del big, got, support
   row = splat_rows[256]
   rows['splat_render'] = (row['ms'], row['plain_ms'], row['max_abs_err'],
                           row['bound_ms'], row['bound_by'],
                           SOURCES['splat_render'])
   device['splat_render'] = row['device_ms']
   shapes['splat_render'] = (100, 512, 256)
-  # No single PyTorch call computes the splat; its yardstick is the default
-  # route (two (B, K, S) exp passes and `torch.bmm`), what a caller who does
-  # not ask for the fused backend runs.
+  # No single PyTorch call computes the splat; its yardstick is the twin,
+  # the bmm route (two (B, K, S) exp passes and `torch.bmm`), what
+  # `backend='auto'` runs on the CPU and `backend='bmm'` on the card.
   library = {'splat_render': row['library_ms']}
   other_shapes['splat_render'].append(splat_rows[512])
 
@@ -4457,10 +4477,11 @@ def main() -> None:
   counted = run_eval('multi_dopant_3_vision_planner',
                      MULTI_DOPANT_VISION_SUCCESS_BAR)
   path_launches['multi_dopant_3_vision_planner_256'] = counted
-  for name in ('noise_chain', 'clahe_hist_lut', 'clahe_remap'):
+  for name in ('splat_render', 'noise_chain', 'clahe_hist_lut',
+               'clahe_remap'):
     check(counted[name] > 0,
           f'{name} was not launched on the multi-dopant path B')
-  for name in ('splat_render', 'clahe_interp', 'clahe_small'):
+  for name in ('clahe_interp', 'clahe_small'):
     check(counted[name] == 0, f'{name} launched on a default route')
 
   # -- 16. instrument drift ----------------------------------------------------
@@ -4475,9 +4496,10 @@ def main() -> None:
                      'multi_dopant_2_vision_planner_drift_corrected_256')):
     counted = run_eval(name, DRIFT_SUCCESS_BARS.get(name, 0.0), path='drift')
     path_launches[key] = counted
-    for kernel in ('noise_chain', 'clahe_hist_lut', 'clahe_remap'):
+    for kernel in ('splat_render', 'noise_chain', 'clahe_hist_lut',
+                   'clahe_remap'):
       check(counted[kernel] > 0, f'{kernel} was not launched on {name}')
-    for kernel in ('splat_render', 'clahe_interp', 'clahe_small'):
+    for kernel in ('clahe_interp', 'clahe_small'):
       check(counted[kernel] == 0, f'{kernel} launched on a default route')
   check(eval_success['multi_dopant_2_vision_planner_drift_corrected']
         > eval_success['multi_dopant_2_vision_planner_drift'],

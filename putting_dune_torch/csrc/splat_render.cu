@@ -7,9 +7,14 @@
 //   prof(d) = exp(-0.5 (d / sigma)^2)  if |d| <= floor(4 sigma + 0.5), else 0
 // it computes
 //   image[y, x] = sum_k (w_k * profy(y - byf_k)) * profx(x - bx_k)
-// in f32, in atom order, and returns image / max(max(image), 1e-20). The
-// TPU kernel casts the factors to bf16 for its matrix unit; that trade is
-// not carried over.
+// in f32, in atom order, each term added by one fused multiply-add, and
+// returns image / max(max(image), 1e-20). That is the arithmetic of an f32
+// GEMM over the atoms (an FFMA chain in k order), so the frame is bit-equal
+// to the batched matrix product of the two factor tensors (imaging/
+// render.py, backend='bmm'): the noise chain draws Poisson counts from the
+// frame and rescales by their maximum, which turns a last-bit difference
+// into another frame where a count crosses. The TPU kernel casts the
+// factors to bf16 for its matrix unit; that trade is not carried over.
 //
 // What bounds it on an H100: the S*S f32 output written once (bins and
 // weights are negligible). A dense contraction would do 2*K*S*S operations
@@ -29,7 +34,7 @@
 //   * Thread t owns one column and R rows of the band and keeps their sums
 //     in registers; each warp walks only the hits within a radius of its 32
 //     columns (a ballot over the hit list), two at a time, and adds
-//     (w * fy) * fx to each row: the expression and order of the plain
+//     fma(w * fy, fx, sum) to each row: the expression and order of the
 //     atom-order sum (a lane outside a hit's support adds +0), so the frame
 //     is bit-equal to it.
 //   * The block's maximum goes into its slot in every block of the cluster
@@ -245,7 +250,9 @@ splat_render_kernel(const float* __restrict__ bx, const float* __restrict__ by,
 
           // Each warp walks only the hits that reach its 32 columns, two
           // at a time. A lane outside a hit's support adds (w * fy) * 0 =
-          // +0, which changes no bit of its non-negative sum.
+          // +0, which changes no bit of its non-negative sum. The explicit
+          // fmaf rounds once, as the GEMM does (--fmad=false contracts
+          // nothing by itself).
           const float4* wfy4 =
               reinterpret_cast<const float4*>(wfy + grp * R);
           const int lo = x0 + wcol, hi = lo + 31;
@@ -258,10 +265,10 @@ splat_render_kernel(const float* __restrict__ bx, const float* __restrict__ by,
 #pragma unroll
             for (int r4 = 0; r4 < R / 4; ++r4) {
               const float4 q = q4[r4];
-              acc[4 * r4 + 0] = acc[4 * r4 + 0] + q.x * fx;
-              acc[4 * r4 + 1] = acc[4 * r4 + 1] + q.y * fx;
-              acc[4 * r4 + 2] = acc[4 * r4 + 2] + q.z * fx;
-              acc[4 * r4 + 3] = acc[4 * r4 + 3] + q.w * fx;
+              acc[4 * r4 + 0] = fmaf(q.x, fx, acc[4 * r4 + 0]);
+              acc[4 * r4 + 1] = fmaf(q.y, fx, acc[4 * r4 + 1]);
+              acc[4 * r4 + 2] = fmaf(q.z, fx, acc[4 * r4 + 2]);
+              acc[4 * r4 + 3] = fmaf(q.w, fx, acc[4 * r4 + 3]);
             }
           };
           for (int base = 0; base < total; base += 32) {

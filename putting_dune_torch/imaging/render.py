@@ -4,10 +4,10 @@ The clean frame is a separable Gaussian splat of the atoms in view:
 
     image[y, x] = sum_k w_k * K(y - bin_y(k)) * K(x - bin_x(k))
 
-which is one batched matrix product per frame, (Gy * w)^T @ Gx, left to
-`torch.bmm` as the JAX package leaves it to an XLA einsum; with
-`backend='fused'` the frame comes from the one-kernel splat of
-ops/splat.py instead. The noisy pipeline is splat -> fused noise chain
+which is one batched matrix product per frame, (Gy * w)^T @ Gx, as the
+JAX package leaves it to an XLA einsum. `render_clean_image` hands the
+frame to ops/splat.py: its one-kernel splat on CUDA tensors, that product
+on CPU tensors. The noisy pipeline is splat -> fused noise chain
 (ops/noise_fused.py) -> CLAHE (imaging/clahe.py). `render_label_mask`
 paints the per-pixel class labels the atom detector is trained on.
 """
@@ -27,21 +27,8 @@ from putting_dune_torch.ops import noise_fused
 from putting_dune_torch.ops import splat as splat_lib
 from putting_dune_torch.utils import profiling
 
-SPLAT_BACKENDS = ('auto', 'fused')
+SPLAT_BACKENDS = ('auto', 'fused', 'bmm')
 NOISE_BACKENDS = ('fused', 'stages')
-
-
-def _splat_axis_kernels(
-    bin_centers: torch.Tensor, sigma: torch.Tensor, image_size: int
-) -> torch.Tensor:
-  """Truncated 1D Gaussian kernels per atom: (B, K, image_size)."""
-  coords = torch.arange(image_size, dtype=torch.float32,
-                        device=bin_centers.device)
-  d = coords - bin_centers[..., None]
-  s = sigma[:, None, None]
-  radius = torch.floor(4.0 * s + 0.5)
-  kern = torch.exp(-0.5 * torch.square(d / s))
-  return torch.where(torch.abs(d) <= radius, kern, torch.zeros_like(kern))
 
 
 def _splat_inputs(window, fov, intensity_exponent, s, blur_amount):
@@ -76,29 +63,25 @@ def render_clean_image(
   """Max-normalized clean STEM frames, (B, S, S) float32; row 0 is the
   top of the image.
 
-  backend: 'auto' is the batched matrix product below (the JAX package's
-  'auto' and 'xla'); 'fused' is the one-kernel splat of ops/splat.py (the
-  JAX package's backend='pallas'): no (B, K, S) factor tensors, exp() per
-  profile entry instead of per (atom, pixel).
+  backend: 'auto' (the default) and 'fused' call `splat_render` of
+  ops/splat.py (the JAX package's 'pallas'), which launches the one-kernel
+  splat on CUDA tensors (no (B, K, S) factor tensors, exp() per profile
+  entry instead of per (atom, pixel)) and runs `splat_render_reference`,
+  the batched matrix product, on CPU tensors; 'bmm' runs that product on
+  any device (the JAX package's 'xla'). Both are f32 with f32 sums.
   """
   if backend not in SPLAT_BACKENDS:
     raise ValueError(
         f'backend must be one of {SPLAT_BACKENDS}, got {backend!r}.')
-  s = image_size
+  splat = (splat_lib.splat_render_reference if backend == 'bmm'
+           else splat_lib.splat_render)
   with profiling.span('render.splat'):
     bx, by, weights, sigma_x, sigma_y = _splat_inputs(
-        window, fov, intensity_exponent, s, blur_amount
+        window, fov, intensity_exponent, image_size, blur_amount
     )
-    if backend == 'fused':
-      return splat_lib.splat_render(
-          bx.contiguous(), by.contiguous(), weights.contiguous(),
-          sigma_x.contiguous(), sigma_y.contiguous(), image_size=s)
-    gx = _splat_axis_kernels(bx, sigma_x, s)  # (B, K, S)
-    gy = _splat_axis_kernels(by, sigma_y, s) * weights[..., None]
-    image = torch.bmm(gy.transpose(1, 2), gx)  # (B, S_y, S_x)
-    image = torch.flip(image, dims=(-2,))
-    peak = torch.amax(image, dim=(-2, -1), keepdim=True)
-    return image / torch.clamp(peak, min=1e-20)
+    return splat(bx.contiguous(), by.contiguous(), weights.contiguous(),
+                 sigma_x.contiguous(), sigma_y.contiguous(),
+                 image_size=image_size)
 
 
 def render_stem_image(

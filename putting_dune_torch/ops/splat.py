@@ -11,14 +11,18 @@ row is a shifted copy of one truncated Gaussian profile of length 2S:
 
 with the y bins flipped at bin level (byf = S-1-by: row 0 is the image
 top). `splat_render` launches csrc/splat_render.cu on CUDA tensors and
-runs `splat_render_reference` on CPU tensors. `splat_render_atom_order`
-sums the atoms one by one, as the kernel does: the oracle its frames are
-held to bit for bit, on the card and in the tests.
+runs `splat_render_reference` on CPU tensors: the plain splat, the two
+(B, K, S) factor tensors and one f32 `torch.bmm` (the JAX package's
+einsum route, and imaging/render.py's backend='bmm' on any device).
+`splat_render_atom_order` sums the atoms one by one, as the kernel does:
+the oracle its frames are held to bit for bit, on the card and in the
+tests.
 
-Numerics: the factors stay float32 and the sum is accumulated in float32.
-The TPU kernel casts its factors to bfloat16 for the matrix unit; that
-trade is not carried over, so the port agrees with the default route
-(imaging/render.py, `torch.bmm`) to float32 rounding.
+Numerics: the factors stay float32 and the sum is accumulated in float32,
+one fused multiply-add an atom in atom order: the arithmetic of an f32
+GEMM's FFMA chain, so on an H100 the kernel's frames are bit-equal to
+`splat_render_reference` at the env's shapes. The TPU kernel casts its
+factors to bfloat16 for the matrix unit; that trade is not carried over.
 """
 
 from __future__ import annotations
@@ -53,28 +57,63 @@ def _shifted_rows(prof: torch.Tensor, shift: torch.Tensor, size: int
       prof[:, None, :].expand(b, k, 2 * size), 2, idx)
 
 
+def _axis_kernels(
+    bin_centers: torch.Tensor, sigma: torch.Tensor, image_size: int
+) -> torch.Tensor:
+  """Truncated 1D Gaussian kernels per atom: (B, K, image_size)."""
+  coords = torch.arange(image_size, dtype=torch.float32,
+                        device=bin_centers.device)
+  d = coords - bin_centers[..., None]
+  s = sigma[:, None, None]
+  radius = torch.floor(4.0 * s + 0.5)
+  kern = torch.exp(-0.5 * torch.square(d / s))
+  return torch.where(torch.abs(d) <= radius, kern, torch.zeros_like(kern))
+
+
 def splat_render_reference(
     bx: torch.Tensor, by: torch.Tensor, weights: torch.Tensor,
     sigma_x: torch.Tensor, sigma_y: torch.Tensor, *, image_size: int,
 ) -> torch.Tensor:
-  """Plain PyTorch twin of `splat_render`: the profile, the per-atom rows
-  as shifted copies of it, and the contraction over the atoms."""
+  """The plain splat: one exp per (atom, pixel) in two (B, K, S) factor
+  tensors, then (Gy * w)^T @ Gx by `torch.bmm`, flipped so that row 0 is
+  the image top."""
   s = image_size
-  ix = torch.clamp(bx.to(torch.int64), 0, s - 1)
-  iyf = (s - 1) - torch.clamp(by.to(torch.int64), 0, s - 1)
-  gx = _shifted_rows(_profile(sigma_x, s), ix, s)  # (B, K, S)
-  gy = _shifted_rows(_profile(sigma_y, s), iyf, s) * weights[..., None]
+  gx = _axis_kernels(torch.clamp(bx, 0, s - 1), sigma_x, s)  # (B, K, S)
+  gy = (_axis_kernels(torch.clamp(by, 0, s - 1), sigma_y, s)
+        * weights[..., None])
   image = torch.bmm(gy.transpose(1, 2), gx)  # (B, S_y, S_x)
+  image = torch.flip(image, dims=(-2,))
   peak = torch.amax(image, dim=(-2, -1), keepdim=True)
   return image / torch.clamp(peak, min=1e-20)
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+          ) -> torch.Tensor:
+  """a * b + c of float32 tensors rounded once to float32, as `fmaf`.
+
+  The product is exact in float64 and TwoSum gives the float64 sum's
+  error; rounding that sum to float32 is then correct except where it lies
+  exactly halfway between two floats, where the error's sign decides.
+  """
+  p = a.double() * b.double()
+  c = c.double()
+  s = p + c
+  z = s - p
+  err = (p - (s - z)) + (c - z)
+  r = s.float()
+  toward = torch.where(r.double() > s, -torch.inf, torch.inf)
+  other = torch.nextafter(r, toward.float())
+  tie = (r.double() + other.double()) * 0.5 == s
+  pick_other = tie & (err != 0) & ((err > 0) == (other > r))
+  return torch.where(pick_other, other, r)
 
 
 def splat_render_atom_order(
     bx: torch.Tensor, by: torch.Tensor, weights: torch.Tensor,
     sigma_x: torch.Tensor, sigma_y: torch.Tensor, *, image_size: int,
 ) -> torch.Tensor:
-  """The frame as `acc = acc + (w_k * gy_k) * gx_k`, atom by atom, then the
-  peak and the divide: the kernel's expression in the kernel's order
+  """The frame as `acc = fma(w_k * gy_k, gx_k, acc)`, atom by atom, then
+  the peak and the divide: the kernel's expression in the kernel's order
   (atoms that miss a pixel add +0, which changes no bit)."""
   s = image_size
   ix = torch.clamp(bx.to(torch.int64), 0, s - 1)
@@ -84,7 +123,7 @@ def splat_render_atom_order(
   acc = torch.zeros((bx.shape[0], s, s), device=bx.device)
   for k in range(bx.shape[1]):
     wy = weights[:, k, None] * gy[:, k]  # (B, S_y)
-    acc = acc + wy[:, :, None] * gx[:, k, None, :]
+    acc = fma32(wy[:, :, None], gx[:, k, None, :], acc)
   peak = torch.amax(acc, dim=(-2, -1), keepdim=True)
   return acc / torch.clamp(peak, min=1e-20)
 

@@ -14,7 +14,8 @@ from benchmark.lib import trace as trace_lib
 IDLE_METRICS = ('eval_loop', 'policy', 'env_step', 'kmc', 'render',
                 'outside_program')
 NEW_METRICS = ('kmc.rounds_per_step', 'host_sync.per_step',
-               'render.splat.device_ms', 'policy.detector.device_ms') + tuple(
+               'render.splat.device_ms', 'policy.detector.device_ms',
+               'render.splat.fused_share') + tuple(
                    f'{name}.idle_ms' for name in IDLE_METRICS)
 
 
@@ -137,6 +138,24 @@ def test_the_counters_are_spans_a_loop_step(tmp_path):
   assert read('host_sync.per_step') == pytest.approx(1.5)
   assert read('render.splat.device_ms') == pytest.approx(9e-3)
   assert read('policy.detector.device_ms') == pytest.approx(2e-3)
+
+
+def test_the_fused_share_is_splat_kernels_over_splat_spans(tmp_path):
+  def read(events):
+    ctx = {'trace': _load(tmp_path, events)}
+    return cells.load_module('metrics', 'render.splat.fused_share').read(ctx)
+
+  # The batched matrix product's kernels under render.splat.
+  assert read(EVENTS) == 0.0
+  kernel = 'void (anonymous namespace)::splat_render_kernel<16>(float*)'
+  fused = [e for e in EVENTS if e['name'] != 'splat_sgemm'] + [
+      _kernel(kernel, 62, 3, 4)]
+  assert read(fused) == 1.0
+  # A second step whose splat took the matrix product.
+  mixed = fused + [_span('eval_loop.step', 150, 80),
+                   _span('render.splat', 160, 20), _launch(161, 5),
+                   _kernel('splat_sgemm', 162, 10, 5)]
+  assert read(mixed) == pytest.approx(0.5)
 
 
 def test_a_program_without_spans_reports_nothing(tmp_path):

@@ -164,15 +164,10 @@ def test_splat_render_matches_twin_and_default_route(cuda, b, k, s):
   got = splat.splat_render(bx, by, w, sx, sy, image_size=s)
   torch.cuda.synchronize()
   assert _build.LAUNCHES['splat_render'] == before + 1
+  # The twin is the batched matrix product of the two factor tensors.
   want = splat.splat_render_reference(bx, by, w, sx, sy, image_size=s)
   # f32 sums of the same products in another order, then one division.
   assert float((got - want).abs().max()) <= 1e-5
-  gx = t_render._splat_axis_kernels(bx, sx, s)
-  gy = t_render._splat_axis_kernels(by, sy, s) * w[..., None]
-  image = torch.flip(torch.bmm(gy.transpose(1, 2), gx), dims=(-2,))
-  image = image / torch.clamp(
-      torch.amax(image, dim=(-2, -1), keepdim=True), min=1e-20)
-  assert float((got - image).abs().max()) <= 1e-5
   assert float(got.amax()) == 1.0
 
 
@@ -422,6 +417,73 @@ def test_splat_render_is_bit_equal_to_the_atom_order_version(
   want = splat.splat_render_atom_order(bx, by, w, sx, sy, image_size=s)
   assert float((got - want).abs().max()) == 0.0
   assert float(got.amax()) == 1.0
+
+
+def _pixel_env(batch, device):
+  from putting_dune_torch import registry
+  from putting_dune_torch import run_helpers
+
+  exp = registry.create_eval_experiment('ppo_simple_images_tf')
+  return run_helpers.create_batched_env(
+      exp.get_adapters_and_goal, exp.get_simulator_config, batch_size=batch,
+      image_size=512, device=device)
+
+
+def test_auto_splat_on_the_card_is_the_kernel(cuda):
+  """'auto' on the env's atom windows at (64, 512 atoms, 512^2): one
+  `splat_render` launch, bit-equal to the atom-order sum and to the
+  batched matrix product (both an f32 fused multiply-add an atom)."""
+  from putting_dune_torch import simulator as simulator_lib
+  from putting_dune_torch.env import env as env_lib
+
+  env = _pixel_env(64, cuda)
+  state, _ = env.reset(env_lib.make_generator(4, cuda))
+  fov = state.sim.fov
+  window = simulator_lib.atom_window(env.lattice, state.sim.material, fov,
+                                     env.config.sim.window_capacity)
+  imaging = state.sim.imaging
+  args = (window, fov, imaging.intensity_exponent)
+  kwargs = dict(image_size=512, blur_amount=imaging.blur_amount)
+  assert tuple(window.positions.shape) == (64, 512, 2)
+  before = _build.LAUNCHES['splat_render']
+  got = t_render.render_clean_image(*args, backend='auto', **kwargs)
+  torch.cuda.synchronize()
+  assert _build.LAUNCHES['splat_render'] == before + 1
+  operands = [t.contiguous() for t in t_render._splat_inputs(
+      window, fov, imaging.intensity_exponent, 512, imaging.blur_amount)]
+  want = splat.splat_render_atom_order(*operands, image_size=512)
+  assert float((got - want).abs().max()) == 0.0
+  bmm = t_render.render_clean_image(*args, backend='bmm', **kwargs)
+  assert torch.equal(got, bmm)
+  assert _build.LAUNCHES['splat_render'] == before + 1
+
+
+def test_env_step_observations_do_not_move_with_the_splat_route(
+    cuda, monkeypatch):
+  """One pixel env step at B 8 from one state and one generator seed, as
+  shipped and with the splat forced onto the batched matrix product: the
+  clean frames are bit-equal, so the observations are too."""
+  import functools
+
+  from putting_dune_torch.env import env as env_lib
+
+  env = _pixel_env(8, cuda)
+  state, _ = env.reset(env_lib.make_generator(5, cuda))
+  action = torch.zeros((8,) + env.action_spec().shape, device=cuda)
+
+  def step():
+    before = _build.LAUNCHES['splat_render']
+    _, ts = env.step(state, action, env_lib.make_generator(6, cuda))
+    torch.cuda.synchronize()
+    return ts.observation['image'], _build.LAUNCHES['splat_render'] - before
+
+  shipped, launched = step()
+  assert launched == 1
+  monkeypatch.setattr(t_render, 'render_clean_image', functools.partial(
+      t_render.render_clean_image, backend='bmm'))
+  forced, launched = step()
+  assert launched == 0
+  assert torch.equal(shipped, forced)
 
 
 def _toy_update_on(device, seed=0, mesh=None):

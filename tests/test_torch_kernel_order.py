@@ -149,8 +149,8 @@ def test_atom_order_splat_matches_pallas_interpret(seed, b, k):
 
 
 def test_atom_order_splat_sums_atom_by_atom():
-  """Two atoms on one pixel: the frame is ((w0 fy0) fx0 + (w1 fy1) fx1),
-  in that order, before the divide."""
+  """Two atoms on one pixel: the frame is fma(w1 fy1, fx1, (w0 fy0) fx0),
+  in that order and rounded once an atom, before the divide."""
   s = 16
   bx = torch.tensor([[5.0, 6.0]])
   by = torch.tensor([[9.0, 9.0]])
@@ -164,7 +164,8 @@ def test_atom_order_splat_sums_atom_by_atom():
   acc = torch.zeros(s)
   for k, x0 in enumerate((5, 6)):
     fx = prof[torch.arange(s) - x0 + s]
-    acc = acc + (w[0, k] * fy) * fx
+    # The product is exact in float64; the sum is rounded once to float32.
+    acc = (acc.double() + (w[0, k] * fy).double() * fx.double()).float()
   # The peak of the frame lies on the atoms' row.
   assert torch.equal(got[0, row], acc / acc.max())
 
@@ -193,3 +194,24 @@ def test_clahe_sources_share_the_lut_header():
     assert names == [f'{name}.cu', 'clahe_lut.cuh']
   assert [p.name for p in _build._sources('splat_render')] == [
       'splat_render.cu']
+
+
+# a * b = 2^-14 - 2^-60 (factors 2^-7 (1 +- 2^-23)) and 2^-14 + 2^-60
+# (2^46 + 1 = 8384513 x 8392705): half a float32 ulp of c = 2^10 (+ 2^-13)
+# and a little, so float64 rounds c + a b onto the float32 midpoint.
+@pytest.mark.parametrize('a,b,c,want', [
+    (2.0**-7 * (1 + 2.0**-23), 2.0**-7 * (1 - 2.0**-23), 2.0**10 + 2.0**-13,
+     2.0**10 + 2.0**-13),
+    (8384513 * 2.0**-30, 8392705 * 2.0**-30, 2.0**10, 2.0**10 + 2.0**-13)])
+def test_fma32_rounds_once_where_float64_lands_on_a_tie(a, b, c, want):
+  """A second rounding, float64 to float32, ties to even and misses; one
+  rounding goes the way of the float64 sum's error."""
+  a, b, c = (torch.tensor([v], dtype=torch.float32) for v in (a, b, c))
+  twice = (a.double() * b.double() + c.double()).float()
+  assert float(t_splat.fma32(a, b, c)) == want
+  assert float(twice) != want
+  # Away from a tie it is the float64 sum rounded to float32.
+  x = torch.rand(1000, generator=torch.Generator().manual_seed(0))
+  y = torch.rand(1000, generator=torch.Generator().manual_seed(1))
+  assert torch.equal(t_splat.fma32(x, y, x),
+                     (x.double() * y.double() + x.double()).float())

@@ -259,6 +259,48 @@ def test_clahe_backends_reject_unknown_values(fn, name, backend):
     fn(backend=backend)
 
 
+@pytest.mark.parametrize('with_blur', [False, True])
+def test_auto_on_cpu_tensors_is_the_bmm_route_bit_for_bit(with_blur):
+  positions, numbers, mask, lower, upper, exponent, blur = _window_case(
+      5, 3, 80)
+  window = t_structures.AtomWindow(
+      _t(positions), _t(numbers), _t(mask),
+      torch.full((3,), -1, dtype=torch.int64))
+  fov = t_structures.FieldOfView(_t(lower), _t(upper))
+  kwargs = dict(image_size=96, blur_amount=_t(blur) if with_blur else None)
+  auto = t_render.render_clean_image(window, fov, _t(exponent), **kwargs)
+  bmm = t_render.render_clean_image(window, fov, _t(exponent),
+                                    backend='bmm', **kwargs)
+  assert torch.equal(auto, bmm)
+  assert float(bmm.amax()) == 1.0
+
+
+@pytest.mark.parametrize('backend,wrapper', [
+    ('auto', 1), ('fused', 1), ('bmm', 0)])
+def test_every_splat_backend_runs_the_plain_splat_on_cpu_tensors(
+    monkeypatch, backend, wrapper):
+  """On CPU tensors each backend reaches `splat_render_reference` once,
+  'auto' and 'fused' through the kernel's wrapper (its CPU branch), 'bmm'
+  directly; no kernel is launched."""
+  positions, numbers, mask, lower, upper, exponent, _ = _window_case(4, 2, 8)
+  window = t_structures.AtomWindow(
+      _t(positions), _t(numbers), _t(mask),
+      torch.full((2,), -1, dtype=torch.int64))
+  fov = t_structures.FieldOfView(_t(lower), _t(upper))
+  calls = {'splat_render': 0, 'splat_render_reference': 0}
+  for name in calls:
+    def counted(*args, _fn=getattr(t_splat, name), _name=name, **kwargs):
+      calls[_name] += 1
+      return _fn(*args, **kwargs)
+    monkeypatch.setattr(t_splat, name, counted)
+  before = dict(_build.LAUNCHES)
+  image = t_render.render_clean_image(window, fov, _t(exponent),
+                                      image_size=32, backend=backend)
+  assert calls == {'splat_render': wrapper, 'splat_render_reference': 1}
+  assert _build.LAUNCHES == before
+  assert float(image.amax()) == 1.0
+
+
 @pytest.mark.parametrize('backend', ['pallas', 'xla', 'interp', ''])
 def test_splat_backend_rejects_unknown_values(backend):
   positions, numbers, mask, lower, upper, exponent, _ = _window_case(4, 1, 8)
